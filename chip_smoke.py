@@ -9,8 +9,10 @@ consent_tpu).  Phases, each failing the run by raising:
      builds both kernels (nvcc, in parallel) and the host library.
   2. the banded kernel against its plain PyTorch version at the main
      path's shapes: N = 4,096 (B = 256 windows x S = 16 slots) and the
-     warm round's N = 1,280, q 512 x r 640, band 128.  Exact equality
-     of all six outputs, then CUDA-event timings.
+     warm round's N = 1,280, q 512 x r 640, band 128, random bases past
+     each query's end.  Exact equality of all six outputs, then
+     CUDA-event timings.  Then few-lane cases of the kernel's other code
+     paths: bands 32, 64 and 256, exact gaps, N = 1,279.
   3. the full-width kernel against its plain version: N = 1,024,
      640 x 640, stitch scoring, then 16 lanes at widths 1,000 to 4,096
      (several columns per thread; gap cap 16 too).  Same checks.  Then one whole consensus
@@ -22,7 +24,7 @@ consent_tpu).  Phases, each failing the run by raising:
      just before and read just after; 600 reads scored against the
      truth as e2e_bench.py samples them, identity >= 0.98 required;
      then a torch.profiler trace of one 1,024-read chunk gives the
-     device's busy share.
+     device's busy share and each kernel's device seconds.
   5. a detail JSON line, one JSON line of per-kernel results, the card
      line, and the final {"ok": true, "device": ...} line.
 
@@ -119,6 +121,7 @@ def near_diagonal_lanes(rng, N, Lq, W, d0_lo=-40, d0_hi=100):
     r_len = rng.integers(W - 140, W + 1, N).astype(np.int32)
     d0 = rng.integers(d0_lo, d0_hi, N).astype(np.int32)
     q_len = rng.integers(Lq // 2, Lq + 1, N).astype(np.int32)
+    q_len[5] = Lq                             # a full query row
     q = walk_fragments(rng, r, d0, q_len, Lq)
     # degenerate lanes: empty query, one base, empty template, offsets
     # past either end of the template
@@ -237,7 +240,21 @@ def phase_setup():
     return card, build_s
 
 
+def banded_lanes(rng, N):
+    """Main-path banded lanes (q 512 x r 640) with random bases written
+    at and past each query's end, which the kernel must never read."""
+    q, q_len, r, r_len, d0 = near_diagonal_lanes(rng, N, 512, 640)
+    tail = np.arange(q.shape[1])[None, :] >= q_len[:, None]
+    q[tail] = rng.integers(0, 4, int(tail.sum()))
+    return q, q_len, r, r_len, d0
+
+
 def phase_banded(rng):
+    """The main path's two shapes (N = 4,096 and the warm round's 1,280),
+    then few-lane exact-equality cases for every code path of the
+    kernel: bands 32, 64 and 256 (1, 2 and 8 slots per thread), exact
+    gaps (the warp-wide scan), and an N that leaves the last block's
+    warps partly idle.  Every case holds lanes with q_len = 0, 1 and Lq."""
     from consent_tpu_torch.ops.align import Scoring
     from consent_tpu_torch.config import correct_preset
 
@@ -246,13 +263,24 @@ def phase_banded(rng):
                  cfg.gap_extend, cfg.consensus_max_hgap, cfg.consensus_band)
     out = []
     for N in (4096, 1280):
-        lanes = near_diagonal_lanes(rng, N, 512, 640)
-        res = kernel_vs_plain("banded_posterior", *lanes, sc, reps=5)
+        res = kernel_vs_plain("banded_posterior", *banded_lanes(rng, N), sc,
+                              reps=20)
         log(f"[banded] N={N}: equal; kernel {res['kernel_ms']:.3f} ms, "
             f"plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms"
             f" ({res['bound_by']}), matched {res['matched_frac']:.3f}")
         out.append(res)
-    return out
+    cases = []
+    for N, band, gap in ((16, 32, 16), (16, 64, 16), (16, 256, 16),
+                         (16, 32, 0), (16, 128, 0), (1279, 128, 16)):
+        res = kernel_vs_plain("banded_posterior", *banded_lanes(rng, N),
+                              sc._replace(band=band, max_hgap=gap), reps=2)
+        log(f"[banded] N={N}, band {band}, max_hgap {gap}: equal; kernel "
+            f"{res['kernel_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
+            f"matched {res['matched_frac']:.3f}")
+        cases.append({k: res[k] for k in ("N", "band", "max_hgap", "equal",
+                                          "kernel_ms", "plain_ms",
+                                          "matched_frac")})
+    return out, cases
 
 
 def phase_consensus_call(rng):
@@ -484,11 +512,15 @@ def phase_profile(piles, reads):
         key=lambda kv: -kv[1],
     )
     device_s = sum(s for _, s in by_op)
+    kernel_s = {name: sum(s for k, s in by_op if f"{name}_kernel" in k)
+                for name in REPLACES}
     log(f"[profile] {len(piles)} piles: wall {wall_s:.3f} s, device "
-        f"{device_s:.3f} s ({100 * device_s / wall_s:.1f}% busy); top: "
+        f"{device_s:.3f} s ({100 * device_s / wall_s:.1f}% busy), kernels "
+        f"{kernel_s}; top: "
         + ", ".join(f"{k} {s:.3f} s" for k, s in by_op[:6]))
     return dict(n_piles=len(piles), wall_s=wall_s, device_s=device_s,
-                busy_share=device_s / wall_s, top=by_op[:12])
+                busy_share=device_s / wall_s, kernel_device_s=kernel_s,
+                top=by_op[:12])
 
 
 def main() -> int:
@@ -499,7 +531,7 @@ def main() -> int:
         return 2
     card, build_s = phase_setup()
     rng = np.random.default_rng(0)
-    banded = phase_banded(rng)
+    banded, banded_cases = phase_banded(rng)
     full = phase_full(rng)
     full_widths = phase_full_widths(rng)
     consensus_call = phase_consensus_call(rng)
@@ -522,6 +554,7 @@ def main() -> int:
                        band=res["band"]),
         ))
     detail = dict(card=card, build_s=build_s, banded_warm=banded[1],
+                  banded_cases=banded_cases,
                   full_widths=full_widths,
                   consensus_call=consensus_call,
                   main=main_res)

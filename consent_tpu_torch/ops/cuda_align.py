@@ -41,6 +41,9 @@ KERNELS = {
 # widest template the full-width kernel takes: 1,024 threads of up to 4
 # columns each (csrc/full_posterior.cu, MAX_W)
 FULL_MAX_W = 4096
+# bands the banded kernel is instantiated for (1 to 32 slots per thread
+# of one warp; csrc/banded_posterior.cu)
+BANDS = (32, 64, 128, 256, 512, 1024)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -135,13 +138,17 @@ def _outputs(N: int, W: int, dev) -> tuple:
 def banded_posterior_summary(q, q_len, r, r_len, d0, sc: Scoring
                              ) -> PosteriorSummary:
     """Banded kernel (csrc/banded_posterior.cu) on CUDA tensors:
-    q [N, Lq] uint8, r [N, W] uint8, q_len/r_len/d0 [N] int32."""
+    q [N, Lq] uint8 (Lq >= 1), r [N, W] uint8, q_len/r_len/d0 [N] int32,
+    bases coded 0-3.  The band is 32 x 2^k up to min(W, 1024): one
+    warp per lane, band / 32 slots per thread."""
     N, Lq = q.shape
     W = r.shape[1]
     BW = sc.band
-    if not (BW % 32 == 0 and 32 <= BW <= min(W, 1024)):
-        raise ValueError(f"banded kernel takes bands that are multiples "
-                         f"of 32 in [32, min(W, 1024)]; got {BW}, W={W}")
+    if BW not in BANDS or BW > W:
+        raise ValueError(f"banded kernel takes bands {BANDS} up to the "
+                         f"template width; got {BW}, W={W}")
+    if Lq < 1:
+        raise ValueError("banded kernel takes query rows of >= 1 base")
     for t, name, dt, shape in (
         (q, "q", torch.uint8, (N, Lq)), (r, "r", torch.uint8, (N, W)),
         (q_len, "q_len", torch.int32, (N,)),

@@ -87,7 +87,7 @@ def assert_equal(a, b):
 
 @pytest.mark.parametrize("seed", range(2))
 @pytest.mark.parametrize("max_hgap", [0, 16])
-@pytest.mark.parametrize("band", [0, 128, 256])
+@pytest.mark.parametrize("band", [0, 32, 64, 128, 256])
 def test_posterior_summary_matches_jax(band, max_hgap, seed):
     rng = np.random.default_rng(seed)
     Lq, Lr = 192, 256
@@ -106,6 +106,36 @@ def test_posterior_summary_matches_jax(band, max_hgap, seed):
     assert_equal(want, got)
     ws, gs = j_align.summary_spans(want), t_align.summary_spans(got)
     assert_equal(ws, gs)
+
+
+@pytest.mark.parametrize("max_hgap", [0, 16])
+@pytest.mark.parametrize("band", [128, 256])
+def test_banded_ignores_bases_past_query_end(band, max_hgap):
+    """The banded kernel sweeps each lane's rows only up to its q_len and
+    never reads the bases at or past it: random bases there leave the
+    plain version's six outputs unchanged, and those outputs still
+    equal the JAX package's on the same inputs."""
+    rng = np.random.default_rng(band + max_hgap)
+    Lq, Lr = 192, 320
+    qs, rs, d0s = near_diagonal(rng, Lq, Lr, n=6)
+    qs.append(rng.integers(0, 4, Lq).astype(np.uint8))     # q_len = Lq
+    rs.append(rng.integers(0, 4, Lr).astype(np.uint8))
+    d0s.append(5)
+    q, ql, r, rl, d0 = arrays(qs, rs, d0s, Lq, Lr)
+    sc = j_align.Scoring(max_hgap=max_hgap, band=band)
+    clean = run_torch(q, ql, r, rl, d0, sc)
+    tail = np.arange(Lq)[None, :] >= ql[:, None]
+    assert tail.any(axis=1).sum() >= 6
+    q[tail] = rng.integers(0, 4, int(tail.sum()))
+    noisy = run_torch(q, ql, r, rl, d0, sc)
+    for field in clean._fields:
+        assert torch.equal(getattr(clean, field), getattr(noisy, field)), \
+            field
+    want = j_align.posterior_summary(
+        jnp.asarray(q), jnp.asarray(ql), jnp.asarray(r), jnp.asarray(rl),
+        sc, d0=jnp.asarray(d0))
+    assert_equal(want, noisy)
+    assert noisy.matched.any(dim=1).sum() >= 6
 
 
 def test_stitch_scoring_matches_jax():
