@@ -13,16 +13,21 @@ consent_tpu).  Phases, each failing the run by raising:
      each query's end.  Exact equality of all six outputs, then
      CUDA-event timings.  Then few-lane cases of the kernel's other code
      paths: bands 32, 64 and 256, exact gaps, N = 1,279.
-  3. the full-width kernel against its plain version: N = 1,024,
-     640 x 640, stitch scoring, then 16 lanes at widths 1,000 to 4,096
-     (several columns per thread; gap cap 16 too).  Same checks.  Then one whole consensus
-     device call (B = 256, S = 16, 2 rounds) is timed.
+  3. the full-width kernel against its plain version at the lane
+     counts the stitch launches: N = 256 (the timed shape) and 64, and
+     N = 1,024 for continuity with earlier runs, 640 x 640, stitch
+     scoring, random bases past each query's end.  Then 16 lanes at
+     widths 768, 896, 1,000 and 1,024 (the one-warp-per-lane kernel's
+     widest instantiations), and at 1,152 to 4,096 or with a gap cap of
+     16 (the one-block-per-lane kernel).  Same checks.  Then one whole
+     consensus device call (B = 256, S = 16, 2 rounds) is timed.
   4. the main path: process_piles on the card against the CPU path on
      a small simulation (byte-identical), then `cli.main_correct` on
      the benchmarks/e2e_bench.py workload (3.35 Mb genome, 10x, 4 kb
      reads, 10% error, seed 7) with both kernels' launch counters reset
-     just before and read just after; 600 reads scored against the
-     truth as e2e_bench.py samples them, identity >= 0.98 required;
+     just before and read just after, with the full-width kernel's
+     launches by lane count; 600 reads scored against the truth as
+     e2e_bench.py samples them, identity >= 0.98 required;
      then a torch.profiler trace of one 1,024-read chunk gives the
      device's busy share and each kernel's device seconds.
   5. a detail JSON line, one JSON line of per-kernel results, the card
@@ -36,6 +41,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -51,6 +57,9 @@ import numpy as np
 # (probes/int_rate.py on the card, PERF.md), so an add-max pair or a
 # 3-way max costs one ALU instruction.  Integer adds can also issue as
 # IMAD on the FMA pipe beside the ALU (same probe), so they do not bound.
+# The packed s16x2 forms issue at the same rate with two int16 lanes each
+# (same probe); the full-width kernel's DP runs in them, two cells per
+# instruction.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
@@ -200,6 +209,8 @@ def kernel_vs_plain(name, q, q_len, r, r_len, d0, sc, reps):
     else:
         cells = int((rows * np.minimum(r_len, W)).sum())
     ops = alu_per_cell(sc) * cells
+    if name == "full_posterior":
+        ops //= 2                    # two int16 cells per s16x2 instruction
     in_bytes = q.nbytes + r.nbytes + q_len.nbytes + r_len.nbytes + (
         d0.nbytes if sc.band else 0)
     out_bytes = 4 * N + N * W * (1 + 4 * 4)
@@ -320,33 +331,54 @@ def phase_consensus_call(rng):
     return dict(B=B, S=S, rounds=cfg.consensus_rounds, call_ms=call_ms)
 
 
+def full_lanes(rng, N, W):
+    """Stitch-shaped lanes (q and template W wide, W = 640 on the main
+    path) with random bases written at and past each query's end, which
+    the kernel must never read; lanes 0, 1 and 5 have q_len 0, 1 and W,
+    lane 2 an empty template."""
+    q, q_len, r, r_len, d0 = near_diagonal_lanes(rng, N, W, W, d0_lo=0,
+                                                 d0_hi=60)
+    tail = np.arange(W)[None, :] >= q_len[:, None]
+    q[tail] = rng.integers(0, 4, int(tail.sum()))
+    return q, q_len, r, r_len, d0
+
+
 def phase_full(rng):
+    """The full-width kernel at the main path's lane counts: each stitch
+    call carries a chunk group's jobs padded to a power of two, mostly
+    256 lanes (pipeline/stitch.py, pipeline/device_align.py), down to 16;
+    N = 1,024 is kept for continuity with earlier runs.  Returns the
+    results by N."""
     from consent_tpu_torch.pipeline.device_align import _SCORING
 
-    q, q_len, r, r_len, d0 = near_diagonal_lanes(rng, 1024, 640, 640,
-                                                 d0_lo=0, d0_hi=60)
-    res = kernel_vs_plain("full_posterior", q, q_len, r, r_len, d0,
-                          _SCORING, reps=5)
-    log(f"[full] N=1024: equal; kernel {res['kernel_ms']:.3f} ms, "
-        f"plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
-        f"({res['bound_by']}), matched {res['matched_frac']:.3f}")
-    return res
+    out = {}
+    for N, reps in ((256, 20), (64, 20), (1024, 5)):
+        res = kernel_vs_plain("full_posterior", *full_lanes(rng, N, 640),
+                              _SCORING, reps=reps)
+        log(f"[full] N={N}: equal; kernel {res['kernel_ms']:.3f} ms, "
+            f"plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms"
+            f" ({res['bound_by']}), matched {res['matched_frac']:.3f}")
+        out[N] = res
+    return out
 
 
 def phase_full_widths(rng):
-    """The full-width kernel against its plain version at template
-    widths past one thread per column (2 and 4 columns per thread), at
-    a width that leaves part of the last warp idle, and with the gap cap
-    of the consensus aligner when its band is 0.  Exact equality; few
-    lanes, so the plain version's row loop stays short."""
+    """The full-width kernel against its plain version at the stitch's
+    other widths (768, 896 and 1,024 columns: 24, 28 and 32 columns per
+    thread of the one-warp-per-lane kernel), at a width that leaves
+    columns of the last thread idle (1,000), past 1,024 columns (the
+    one-block-per-lane kernel, 2 and 4 columns per thread), and with the
+    gap cap of the consensus aligner when its band is 0.  Exact
+    equality; few lanes, so the plain version's row loop stays short."""
     from consent_tpu_torch.ops.align import Scoring
     from consent_tpu_torch.pipeline.device_align import _SCORING
 
     capped = Scoring(2, -4, 4, 2, max_hgap=16, band=0)
     out = []
-    for W, sc in ((1000, _SCORING), (1152, _SCORING), (1152, capped),
-                  (2500, _SCORING), (4096, capped)):
-        lanes = near_diagonal_lanes(rng, 16, W, W, d0_lo=0, d0_hi=60)
+    for W, sc in ((768, _SCORING), (896, _SCORING), (1024, _SCORING),
+                  (896, capped), (1000, _SCORING), (1152, _SCORING),
+                  (1152, capped), (2500, _SCORING), (4096, capped)):
+        lanes = full_lanes(rng, 16, W)
         res = kernel_vs_plain("full_posterior", *lanes, sc, reps=2)
         log(f"[full] N=16, W={W}, max_hgap={sc.max_hgap}: equal; kernel "
             f"{res['kernel_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
@@ -421,6 +453,7 @@ def phase_main(genome_len, workdir):
                            "--overlapper", "native", "--stats"])
     correct_s = time.perf_counter() - t0
     launches = cuda_align.launch_counts()
+    lane_hist = cuda_align.lane_histogram()
     if rc != 0:
         raise AssertionError(f"main_correct returned {rc}")
     for name, n in launches.items():
@@ -433,6 +466,8 @@ def phase_main(genome_len, workdir):
     log(f"[main] main_correct {correct_s:.3f} s (streamed overlap + "
         f"pipeline {pipe_s:.3f} s), {n_windows} windows, "
         f"{n_windows / pipe_s:.2f} windows/s, launches {launches}")
+    log(f"[main] full_posterior launches by lane count: "
+        f"{lane_hist['full_posterior']}")
 
     # accuracy on the e2e_bench.py sample: 600 reads of the output, in
     # output order, rng(0) without replacement
@@ -474,7 +509,7 @@ def phase_main(genome_len, workdir):
         correct_wall_s=correct_s, pipeline_wall_s=pipe_s,
         windows_per_s=n_windows / pipe_s, raw_identity=raw_id,
         corrected_identity=cor_id, n_scored=len(sample),
-        launches=launches,
+        launches=launches, lane_histogram=lane_hist,
     )
 
 
@@ -512,7 +547,9 @@ def phase_profile(piles, reads):
         key=lambda kv: -kv[1],
     )
     device_s = sum(s for _, s in by_op)
-    kernel_s = {name: sum(s for k, s in by_op if f"{name}_kernel" in k)
+    # each kernel's instantiations are named <name>[_warp|_block]_kernel<C>
+    kernel_s = {name: sum(s for k, s in by_op
+                          if re.search(rf"\b{name}(_\w+)?_kernel<", k))
                 for name in REPLACES}
     log(f"[profile] {len(piles)} piles: wall {wall_s:.3f} s, device "
         f"{device_s:.3f} s ({100 * device_s / wall_s:.1f}% busy), kernels "
@@ -540,7 +577,7 @@ def main() -> int:
         main_res = phase_main(GENOME_LEN, workdir)
 
     kernels = []
-    for res in (banded[0], full):
+    for res in (banded[0], full[256]):
         kernels.append(dict(
             name=res["name"], route="cuda",
             source=f"consent_tpu_torch/csrc/{res['name']}.cu",
@@ -553,8 +590,17 @@ def main() -> int:
             shape=dict(N=res["N"], Lq=res["Lq"], W=res["W"],
                        band=res["band"]),
         ))
+    # the full-width kernel at N = 1,024 and 64, beside the timed N = 256
+    for n in (1024, 64):
+        kernels[1][f"ms_n{n}"] = full[n]["kernel_ms"]
+        kernels[1][f"plain_ms_n{n}"] = full[n]["plain_ms"]
+        kernels[1][f"bound_ms_n{n}"] = full[n]["bound_ms"]
     detail = dict(card=card, build_s=build_s, banded_warm=banded[1],
                   banded_cases=banded_cases,
+                  full={n: {k: res[k] for k in ("kernel_ms", "plain_ms",
+                                                "bound_ms", "cells",
+                                                "matched_frac")}
+                        for n, res in full.items()},
                   full_widths=full_widths,
                   consensus_call=consensus_call,
                   main=main_res)

@@ -39,7 +39,8 @@ KERNELS = {
     "full_posterior": os.path.join(_CSRC, "full_posterior.cu"),
 }
 # widest template the full-width kernel takes: 1,024 threads of up to 4
-# columns each (csrc/full_posterior.cu, MAX_W)
+# columns each (csrc/full_posterior.cu, MAX_W); with exact gaps up to
+# 1,024 columns it runs one warp per lane, otherwise one block per lane
 FULL_MAX_W = 4096
 # bands the banded kernel is instantiated for (1 to 32 slots per thread
 # of one warp; csrc/banded_posterior.cu)
@@ -50,6 +51,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# launches by lane count N, per kernel
+_lane_hist: Dict[str, Dict[int, int]] = {name: {} for name in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -94,15 +97,25 @@ def launch_counts() -> Dict[str, int]:
         return dict(_launches)
 
 
+def lane_histogram() -> Dict[str, Dict[int, int]]:
+    """Launches of each kernel by lane count N, since the last reset."""
+    with _lock:
+        return {name: dict(sorted(h.items()))
+                for name, h in _lane_hist.items()}
+
+
 def reset_launch_counts() -> None:
     with _lock:
         for name in _launches:
             _launches[name] = 0
+            _lane_hist[name].clear()
 
 
-def _count(name: str) -> None:
+def _count(name: str, lanes: int) -> None:
     with _lock:
         _launches[name] += 1
+        hist = _lane_hist[name]
+        hist[lanes] = hist.get(lanes, 0) + 1
 
 
 def scan_window(max_hgap: int, width: int) -> int:
@@ -169,15 +182,30 @@ def banded_posterior_summary(q, q_len, r, r_len, d0, sc: Scoring
                 *(t.data_ptr() for t in outs), hm.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"banded_posterior launch failed: CUDA error {rc}")
-    _count("banded_posterior")
+    _count("banded_posterior", N)
     return PosteriorSummary(*outs)
+
+
+def full_stage_cols(W: int) -> int:
+    """Columns of one slot of the full-width kernel's hm scratch: W
+    rounded up to 128 (32 threads x C columns, C a multiple of 4, in the
+    one-warp-per-lane kernel; csrc/full_posterior.cu: stage_cols)."""
+    return (W + 127) // 128 * 128
+
+
+def full_stage_slots(Lq: int) -> int:
+    """Slots of the full-width kernel's hm scratch per lane: one per
+    step of the one-warp-per-lane kernel's wavefront (q_len + 31 steps),
+    one per row in the one-block-per-lane kernel."""
+    return Lq + 32
 
 
 def full_posterior_summary(q, q_len, r, r_len, sc: Scoring
                            ) -> PosteriorSummary:
     """Full-width kernel (csrc/full_posterior.cu) on CUDA tensors:
     q [N, Lq] uint8, r [N, W] uint8 (1 <= W <= FULL_MAX_W),
-    q_len/r_len [N] int32."""
+    q_len/r_len [N] int32.  One warp per lane up to 1,024 columns, one
+    block per lane above."""
     N, Lq = q.shape
     W = r.shape[1]
     if not 1 <= W <= FULL_MAX_W:
@@ -192,7 +220,8 @@ def full_posterior_summary(q, q_len, r, r_len, sc: Scoring
     outs = _outputs(N, W, q.device)
     if N == 0:
         return PosteriorSummary(*outs)
-    hm = torch.empty((N, Lq, W), dtype=torch.int16, device=q.device)
+    hm = torch.empty((N, full_stage_slots(Lq), full_stage_cols(W)),
+                     dtype=torch.int16, device=q.device)
     fn = _lib("full_posterior").full_posterior_launch
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -202,7 +231,7 @@ def full_posterior_summary(q, q_len, r, r_len, sc: Scoring
                 *(t.data_ptr() for t in outs), hm.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"full_posterior launch failed: CUDA error {rc}")
-    _count("full_posterior")
+    _count("full_posterior", N)
     return PosteriorSummary(*outs)
 
 

@@ -109,12 +109,12 @@ def test_posterior_summary_matches_jax(band, max_hgap, seed):
 
 
 @pytest.mark.parametrize("max_hgap", [0, 16])
-@pytest.mark.parametrize("band", [128, 256])
-def test_banded_ignores_bases_past_query_end(band, max_hgap):
-    """The banded kernel sweeps each lane's rows only up to its q_len and
-    never reads the bases at or past it: random bases there leave the
-    plain version's six outputs unchanged, and those outputs still
-    equal the JAX package's on the same inputs."""
+@pytest.mark.parametrize("band", [0, 128, 256])
+def test_posterior_ignores_bases_past_query_end(band, max_hgap):
+    """Both kernels (banded, and full width at band 0) sweep each lane's
+    rows only up to its q_len and never read the bases at or past it:
+    random bases there leave the plain version's six outputs unchanged,
+    and those outputs still equal the JAX package's on the same inputs."""
     rng = np.random.default_rng(band + max_hgap)
     Lq, Lr = 192, 320
     qs, rs, d0s = near_diagonal(rng, Lq, Lr, n=6)
@@ -133,9 +133,57 @@ def test_banded_ignores_bases_past_query_end(band, max_hgap):
             field
     want = j_align.posterior_summary(
         jnp.asarray(q), jnp.asarray(ql), jnp.asarray(r), jnp.asarray(rl),
-        sc, d0=jnp.asarray(d0))
+        sc, d0=jnp.asarray(d0) if band else None)
     assert_equal(want, noisy)
     assert noisy.matched.any(dim=1).sum() >= 6
+
+
+@pytest.mark.parametrize("max_hgap", [0, 16])
+def test_full_width_padding_lanes_give_empty_summary(max_hgap):
+    """The stitch pads each device call to a power of two with lanes of
+    q_len = r_len = 0; lanes with an empty query, an empty template or
+    both give the empty summary (opt 0, nothing matched, i_first Lq,
+    i_last -1, base and ins_pack 0), beside live lanes, and equal the
+    JAX package's output."""
+    rng = np.random.default_rng(11 + max_hgap)
+    Lq, Lr = 160, 256
+    pairs = [random_pair(rng, n=int(rng.integers(40, 120)))
+             for _ in range(4)]
+    qs = [p[0] for p in pairs]
+    rs = [p[1] for p in pairs]
+    empty_q = np.empty(0, np.uint8)
+    qs += [empty_q, rng.integers(0, 4, 50).astype(np.uint8), empty_q,
+           empty_q]
+    rs += [rng.integers(0, 4, 90).astype(np.uint8), np.empty(0, np.uint8),
+           np.empty(0, np.uint8), np.empty(0, np.uint8)]
+    q, ql, r, rl, d0 = arrays(qs, rs, [0] * len(qs), Lq, Lr)
+    # padding lanes carry whatever the buffer held past their lengths
+    q[4:] = rng.integers(0, 4, q[4:].shape)
+    r[5:] = rng.integers(0, 4, r[5:].shape)
+    sc = j_align.Scoring(2, -2, 3, 1, max_hgap=max_hgap)
+    got = run_torch(q, ql, r, rl, d0, sc)
+    empty = slice(4, None)
+    assert (got.opt[empty] == 0).all()
+    assert not got.matched[empty].any()
+    assert (got.i_first[empty] == Lq).all()
+    assert (got.i_last[empty] == -1).all()
+    assert (got.base[empty] == 0).all()
+    assert (got.ins_pack[empty] == 0).all()
+    assert got.matched[:4].any(dim=1).all()
+    want = j_align.posterior_summary(
+        jnp.asarray(q), jnp.asarray(ql), jnp.asarray(r), jnp.asarray(rl), sc)
+    assert_equal(want, got)
+
+
+def test_full_stage_cols_cover_the_warp_kernel():
+    """The wrapper's hm scratch rows are as wide as the full-width
+    kernel's staged rows: W rounded up to 128 columns, i.e. 32 threads x
+    C columns with C a multiple of 4 up to 1,024 columns."""
+    for W in (1, 31, 128, 129, 640, 700, 768, 896, 1000, 1024, 1152, 4096):
+        cols = cuda_align.full_stage_cols(W)
+        assert cols >= W and cols % 128 == 0 and cols - W < 128
+        if W <= 1024:
+            assert (cols // 32) % 4 == 0 and cols // 32 <= 32
 
 
 def test_stitch_scoring_matches_jax():
@@ -187,3 +235,25 @@ def test_scan_window_matches_plain_doubling():
             window = cuda_align.scan_window(gap, width)
             assert 1 <= window <= width
             assert min(window, width - 1) == reach, (gap, width)
+
+
+def test_lane_histogram_counts_launches_by_lane_count():
+    """The wrappers count each kernel's launches by lane count beside
+    the plain launch count; a reset clears both."""
+    try:
+        cuda_align.reset_launch_counts()
+        for lanes in (256, 256, 64):
+            cuda_align._count("full_posterior", lanes)
+        cuda_align._count("banded_posterior", 4096)
+        assert cuda_align.launch_counts() == {"banded_posterior": 1,
+                                              "full_posterior": 3}
+        assert cuda_align.lane_histogram() == {
+            "banded_posterior": {4096: 1},
+            "full_posterior": {64: 1, 256: 2}}
+        cuda_align.reset_launch_counts()
+        assert cuda_align.launch_counts() == {"banded_posterior": 0,
+                                              "full_posterior": 0}
+        assert cuda_align.lane_histogram() == {"banded_posterior": {},
+                                               "full_posterior": {}}
+    finally:
+        cuda_align.reset_launch_counts()
