@@ -9,13 +9,14 @@ consent_tpu).  Phases, each failing the run by raising:
      builds both kernels (nvcc, in parallel) and the host library.
   2. the banded kernel against its plain PyTorch version at the main
      path's shapes: N = 4,096 (B = 256 windows x S = 16 slots) and the
-     warm round's N = 1,280, q 512 x r 640, band 128, random bases past
-     each query's end.  Exact equality of all six outputs, then
+     warm round's N = 1,280, and polish's deep 152-slot bucket, N = 3,952
+     (B = 26 x S = 152) and its warm round's 988; q 512 x r 640, band
+     128, random bases past each query's end.  Exact equality of all six outputs, then
      CUDA-event timings.  Then few-lane cases of the kernel's other code
      paths: bands 32, 64 and 256, exact gaps, N = 1,279.
   3. the full-width kernel against its plain version at the lane
-     counts the stitch launches: N = 256 (the timed shape) and 64, and
-     N = 1,024 for continuity with earlier runs, 640 x 640, stitch
+     counts the stitch launches: N = 256 (the timed shape), 64, polish's
+     32, and N = 1,024 for continuity with earlier runs, 640 x 640, stitch
      scoring, random bases past each query's end.  Then 16 lanes at
      widths 768, 896, 1,000 and 1,024 (the one-warp-per-lane kernel's
      widest instantiations), and at 1,152 to 4,096 or with a gap cap of
@@ -30,7 +31,17 @@ consent_tpu).  Phases, each failing the run by raising:
      e2e_bench.py samples them, identity >= 0.98 required;
      then a torch.profiler trace of one 1,024-read chunk gives the
      device's busy share and each kernel's device seconds.
-  5. a detail JSON line, one JSON line of per-kernel results, the card
+  5. polish: `cli.main_polish` on tests/test_cli.py's small draft on the
+     card and on the CPU (byte-identical), and twice more on the card
+     with --resume (byte-identical again); then the polish workload at
+     full size (benchmarks/polish_bench.py's shape: the main phase's
+     3.35 Mb genome cut into 86 contigs of >= 5 kb, a 1%-error draft,
+     the main phase's 10x reads), launch counters reset just before,
+     every contig scored, polished > draft and >= 0.99 required, both
+     kernels launched; then deep piles (150 kb at 100x in 6 contigs of
+     25 kb), which must launch the banded kernel from the 152-slot
+     fragment bucket and polish above the draft.
+  6. a detail JSON line, one JSON line of per-kernel results, the card
      line, and the final {"ok": true, "device": ...} line.
 
 Usage: python3 chip_smoke.py
@@ -90,6 +101,19 @@ REPLACES = {
 # a cut of the workload and is recorded in PERF.md
 GENOME_LEN = 3_350_000
 E2E = dict(coverage=10.0, read_len=4000, error_rate=0.10, seed=7)
+# benchmarks/polish_bench.py's shape on the main phase's genome: 86
+# contigs (the bundled assembly's count), a 1%-error draft, not cut
+POLISH_CONTIGS = 86
+POLISH_MIN_CONTIG = 5_000
+POLISH_DRAFT_ERR = 0.01
+# deep piles: 100x over 6 contigs of 25 kb, so windows fill the
+# 152-slot fragment bucket (maxMSA 150 + the template)
+DEEP = dict(genome_len=150_000, coverage=100.0, read_len=4000,
+            error_rate=0.10, seed=11)
+DEEP_CONTIGS = 6
+# banded lanes of one call in the 152-slot bucket: 26 windows (the
+# 4,096-lane budget) or the 16-window tail, times 152 slots
+DEEP_LANES = (26 * 152, 16 * 152)
 
 
 def log(msg):
@@ -262,7 +286,8 @@ def banded_lanes(rng, N):
 
 def phase_banded(rng):
     """The main path's two shapes (N = 4,096 and the warm round's 1,280),
-    then few-lane exact-equality cases for every code path of the
+    the polish path's deep 152-slot bucket (N = 3,952 and its warm
+    round's 988), then few-lane exact-equality cases for every code path of the
     kernel: bands 32, 64 and 256 (1, 2 and 8 slots per thread), exact
     gaps (the warp-wide scan), and an N that leaves the last block's
     warps partly idle.  Every case holds lanes with q_len = 0, 1 and Lq."""
@@ -273,7 +298,7 @@ def phase_banded(rng):
     sc = Scoring(cfg.match_score, cfg.mismatch_score, cfg.gap_open,
                  cfg.gap_extend, cfg.consensus_max_hgap, cfg.consensus_band)
     out = []
-    for N in (4096, 1280):
+    for N in (4096, 1280, 3952, 988):
         res = kernel_vs_plain("banded_posterior", *banded_lanes(rng, N), sc,
                               reps=20)
         log(f"[banded] N={N}: equal; kernel {res['kernel_ms']:.3f} ms, "
@@ -347,12 +372,12 @@ def phase_full(rng):
     """The full-width kernel at the main path's lane counts: each stitch
     call carries a chunk group's jobs padded to a power of two, mostly
     256 lanes (pipeline/stitch.py, pipeline/device_align.py), down to 16;
-    N = 1,024 is kept for continuity with earlier runs.  Returns the
-    results by N."""
+    polish's 86 contigs in 4 groups give 32 lanes; N = 1,024 is kept for
+    continuity with earlier runs.  Returns the results by N."""
     from consent_tpu_torch.pipeline.device_align import _SCORING
 
     out = {}
-    for N, reps in ((256, 20), (64, 20), (1024, 5)):
+    for N, reps in ((256, 20), (64, 20), (1024, 5), (32, 20)):
         res = kernel_vs_plain("full_posterior", *full_lanes(rng, N, 640),
                               _SCORING, reps=reps)
         log(f"[full] N={N}: equal; kernel {res['kernel_ms']:.3f} ms, "
@@ -416,25 +441,55 @@ def phase_card_vs_cpu():
         f"({time.perf_counter() - t0:.1f} s)")
 
 
-def phase_main(genome_len, workdir):
+def write_fasta(path, records):
+    from consent_tpu_torch.io import seqs
+
+    with open(path, "w") as f:
+        for name, codes in records:
+            f.write(f">{name}\n{seqs.decode(codes)}\n")
+
+
+def simulate_reads(workdir, tag, **sim):
+    """(genome, reads, reads FASTA path) of one simulation."""
+    from consent_tpu_torch.testing import simulate
+
+    t0 = time.perf_counter()
+    genome, reads = simulate.simulate(**sim)
+    reads_fa = os.path.join(workdir, f"{tag}_reads.fasta")
+    write_fasta(reads_fa, ((rd.name, rd.codes) for rd in reads))
+    n_bases = int(sum(len(rd.codes) for rd in reads))
+    log(f"[{tag}] simulated {len(reads)} reads, {n_bases / 1e6:.3f} Mb "
+        f"({time.perf_counter() - t0:.1f} s, excluded)")
+    return genome, reads, reads_fa
+
+
+def score_pool(pairs):
+    """metrics.identity over (test, truth) pairs in a process pool, the
+    longest first; returns the identities in the pairs' order."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from consent_tpu_torch.testing import metrics
+
+    order = sorted(range(len(pairs)), key=lambda i: -len(pairs[i][1]))
+    with ProcessPoolExecutor(max_workers=os.cpu_count() or 1,
+                             mp_context=mp.get_context("spawn")) as pool:
+        ids = list(pool.map(metrics.identity,
+                            *zip(*(pairs[i] for i in order))))
+    out = [0.0] * len(pairs)
+    for i, v in zip(order, ids):
+        out[i] = v
+    return out
+
+
+def phase_main(genome, reads, reads_fa, workdir):
     from consent_tpu_torch import cli
     from consent_tpu_torch.io import seqs
     from consent_tpu_torch.io.fasta import iter_fastx
     from consent_tpu_torch.ops import cuda_align
     from consent_tpu_torch.overlap import minimizer as mz
     from consent_tpu_torch.config import correct_preset
-    from consent_tpu_torch.testing import metrics, simulate
     from consent_tpu_torch.utils.observe import GLOBAL_STATS
-
-    t0 = time.perf_counter()
-    genome, reads = simulate.simulate(genome_len=genome_len, **E2E)
-    reads_fa = os.path.join(workdir, "reads.fasta")
-    with open(reads_fa, "w") as f:
-        for rd in reads:
-            f.write(f">{rd.name}\n{seqs.decode(rd.codes)}\n")
-    n_bases = int(sum(len(rd.codes) for rd in reads))
-    log(f"[main] simulated {len(reads)} reads, {n_bases / 1e6:.3f} Mb "
-        f"({time.perf_counter() - t0:.1f} s, excluded)")
 
     # overlap stage on its own (materialized), as e2e_bench.py times it
     t0 = time.perf_counter()
@@ -489,22 +544,23 @@ def phase_main(genome_len, workdir):
         pairs.append((codes, truth))
         pairs.append((rd.codes, truth))
     t0 = time.perf_counter()
-    import multiprocessing as mp
-    from concurrent.futures import ProcessPoolExecutor
-
-    with ProcessPoolExecutor(max_workers=os.cpu_count() or 1,
-                             mp_context=mp.get_context("spawn")) as pool:
-        ids = list(pool.map(metrics.identity, *zip(*pairs), chunksize=8))
+    ids = score_pool(pairs)
     cor_id = float(np.mean(ids[0::2]))
     raw_id = float(np.mean(ids[1::2]))
     log(f"[main] identity raw {raw_id:.4f} -> corrected {cor_id:.4f} on "
         f"{len(sample)} reads ({time.perf_counter() - t0:.1f} s scoring)")
     if not cor_id >= 0.98:
         raise AssertionError(f"corrected identity {cor_id:.4f} < 0.98")
-    profile = phase_profile(piles[:1024], reads)
+    from consent_tpu_torch.io.fasta import ReadIndex
+
+    index = ReadIndex()
+    for rd in reads:
+        index.add(rd.name, rd.codes)
+    profile = phase_profile("main", piles[:1024], index,
+                            correct_preset(n_workers=os.cpu_count()))
     return dict(
         profile=profile,
-        genome_len=genome_len, n_reads=len(reads), n_out=len(results),
+        genome_len=len(genome), n_reads=len(reads), n_out=len(results),
         n_windows=n_windows, overlap_wall_s=overlap_s,
         correct_wall_s=correct_s, pipeline_wall_s=pipe_s,
         windows_per_s=n_windows / pipe_s, raw_identity=raw_id,
@@ -513,23 +569,215 @@ def phase_main(genome_len, workdir):
     )
 
 
-def phase_profile(piles, reads):
-    """The device's busy share over one chunk of the main path (the
-    first 1,024 piles): CUDA time recorded by torch.profiler over the
-    wall time of process_piles under the profiler (which adds its own
-    host overhead, so the share is a lower bound for an unprofiled run)."""
+def run_polish(tag, contigs_fa, reads_fa, out_fa, extra=()):
+    """cli.main_polish on the card with launch counters and stage stats
+    reset just before; returns its measurements."""
+    from consent_tpu_torch import cli
+    from consent_tpu_torch.ops import cuda_align
+    from consent_tpu_torch.utils.observe import GLOBAL_STATS
+
+    GLOBAL_STATS.seconds.clear()
+    GLOBAL_STATS.counts.clear()
+    cuda_align.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main_polish(["--contigs", contigs_fa, "--reads", reads_fa,
+                          "--out", out_fa, "--overlapper", "native",
+                          "--stats", *extra])
+    wall_s = time.perf_counter() - t0
+    launches = cuda_align.launch_counts()
+    lane_hist = cuda_align.lane_histogram()
+    if rc != 0:
+        raise AssertionError(f"[{tag}] main_polish returned {rc}")
+    stats = GLOBAL_STATS.snapshot()
+    n_windows = stats["counts"].get("windows.total", 0)
+    pipe_s = stats["seconds"]["consent-polish.pipeline"]
+    stage_s = {k: v for k, v in sorted(stats["seconds"].items())
+               if k != "consent-polish.pipeline"}
+    log(f"[{tag}] main_polish {wall_s:.3f} s (streamed overlap + pipeline "
+        f"{pipe_s:.3f} s), {n_windows} windows, {n_windows / pipe_s:.2f} "
+        f"windows/s, launches {launches}")
+    log(f"[{tag}] stage thread-seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage_s.items()))
+    for name, hist in lane_hist.items():
+        log(f"[{tag}] {name} launches by lane count: {hist}")
+    return dict(wall_s=wall_s, pipeline_wall_s=pipe_s, n_windows=n_windows,
+                windows_per_s=n_windows / pipe_s, stage_thread_s=stage_s,
+                launches=launches, lane_histogram=lane_hist)
+
+
+def score_polish(tag, out_fa, truth, draft):
+    """Mean identity over the contigs of the polished output and of the
+    draft, each against its truth, as benchmarks/polish_bench.py scores."""
+    from consent_tpu_torch.io import seqs
+    from consent_tpu_torch.io.fasta import iter_fastx
+
+    polished = {n: seqs.encode(s) for n, s in iter_fastx(out_fa)}
+    if sorted(polished) != sorted(truth):
+        raise AssertionError(f"[{tag}] polished {len(polished)} of "
+                             f"{len(truth)} contigs")
+    t0 = time.perf_counter()
+    pairs = [(polished[n], truth[n]) for n in truth]
+    pairs += [(draft[n], truth[n]) for n in truth]
+    ids = score_pool(pairs)
+    n = len(truth)
+    pol_id, draft_id = float(np.mean(ids[:n])), float(np.mean(ids[n:]))
+    log(f"[{tag}] identity draft {draft_id:.5f} -> polished {pol_id:.5f} "
+        f"over {n} contigs ({time.perf_counter() - t0:.1f} s scoring)")
+    if not pol_id > draft_id:
+        raise AssertionError(f"[{tag}] polished {pol_id:.5f} <= draft "
+                             f"{draft_id:.5f}")
+    return dict(draft_identity=draft_id, polished_identity=pol_id,
+                n_contigs=n)
+
+
+def cut_contigs(genome, n, min_len, rng, draft_err):
+    """The genome cut at n - 1 points drawn from rng into contigs of at
+    least min_len bases, and a draft of each mutated by rng at
+    draft_err: (truth, draft) dicts by contig name."""
+    from consent_tpu_torch.testing import simulate
+
+    slack = len(genome) - n * min_len
+    pts = np.sort(rng.integers(0, slack + 1, n - 1))
+    cuts = np.concatenate([[0], pts + min_len * np.arange(1, n),
+                           [len(genome)]])
+    truth = {f"contig{i}": genome[cuts[i]: cuts[i + 1]] for i in range(n)}
+    draft = {name: simulate.mutate(c, rng, draft_err)[0]
+             for name, c in truth.items()}
+    return truth, draft
+
+
+def phase_polish_card_vs_cpu(workdir):
+    """main_polish on tests/test_cli.py's small draft: the card and the
+    CPU write the same bytes, and so do two card runs with --resume.
+    The first card run writes a --profile-dir trace, which must hold
+    the banded kernel's launches (one contig's stitch goes to the host
+    aligner)."""
+    from consent_tpu_torch import cli
+    from consent_tpu_torch.testing import simulate
+
+    genome, reads = simulate.simulate(genome_len=2000, coverage=10.0,
+                                      read_len=700, error_rate=0.08, seed=21)
+    reads_fa = os.path.join(workdir, "small_reads.fasta")
+    write_fasta(reads_fa, ((rd.name, rd.codes) for rd in reads))
+    asm_fa = os.path.join(workdir, "small_draft.fasta")
+    write_fasta(asm_fa, [("contig1", simulate.mutate(
+        genome, np.random.default_rng(1), 0.02)[0])])
+    base = ["--contigs", asm_fa, "--reads", reads_fa, "--windowSize", "200",
+            "--windowOverlap", "20", "--overlapper", "native"]
+    trace_dir = os.path.join(workdir, "trace")
+    t0 = time.perf_counter()
+    outs = {}
+    # both --resume runs write one output: the second resumes the first
+    for tag, out, extra in (("cuda", "card", ["--profile-dir", trace_dir]),
+                            ("cpu", "cpu", ["--device", "cpu"]),
+                            ("resume1", "resumed", ["--resume"]),
+                            ("resume2", "resumed", ["--resume"])):
+        path = os.path.join(workdir, f"small_{out}.fasta")
+        if cli.main_polish(base + ["--out", path] + extra) != 0:
+            raise AssertionError(f"[polish] small draft, {tag}: rc != 0")
+        with open(path, "rb") as f:
+            outs[tag] = f.read()
+    if not outs["cuda"].startswith(b">contig1\n") or len(outs["cuda"]) < 1900:
+        raise AssertionError("[polish] small draft: no polished contig")
+    for tag in ("cpu", "resume1", "resume2"):
+        if outs[tag] != outs["cuda"]:
+            raise AssertionError(f"[polish] small draft: {tag} bytes differ "
+                                 f"from the card's")
+    (trace,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, trace)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    if not any(re.search(r"\bbanded_posterior(_\w+)?_kernel<", n)
+               for n in names):
+        raise AssertionError("[polish] the --profile-dir trace has no "
+                             "banded_posterior kernel")
+    log(f"[polish] small draft: card == CPU == card --resume (twice), "
+        f"{len(outs['cuda'])} bytes, {len(names)} kernel names in the "
+        f"--profile-dir trace ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_polish(genome, reads_fa, workdir):
+    """The polish workload at full size on the main phase's genome and
+    reads (benchmarks/polish_bench.py's gate: polished > draft and
+    >= 0.99); both kernels must launch."""
+    t0 = time.perf_counter()
+    truth, draft = cut_contigs(genome, POLISH_CONTIGS, POLISH_MIN_CONTIG,
+                               np.random.default_rng(3), POLISH_DRAFT_ERR)
+    lens = np.array([len(c) for c in truth.values()])
+    asm_fa = os.path.join(workdir, "draft.fasta")
+    write_fasta(asm_fa, draft.items())
+    log(f"[polish] {len(truth)} contigs, lengths min {lens.min()}, median "
+        f"{int(np.median(lens))}, max {lens.max()} "
+        f"({time.perf_counter() - t0:.1f} s, excluded)")
+    out_fa = os.path.join(workdir, "polished.fasta")
+    res = run_polish("polish", asm_fa, reads_fa, out_fa)
+    for name, n in res["launches"].items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"polish path")
+    res.update(score_polish("polish", out_fa, truth, draft))
+    if not res["polished_identity"] >= 0.99:
+        raise AssertionError(f"[polish] polished identity "
+                             f"{res['polished_identity']:.5f} < 0.99")
+    res["contig_len"] = dict(min=int(lens.min()), median=float(np.median(lens)),
+                             max=int(lens.max()))
+
+    # the overlap stage on its own (reads mapped onto the draft,
+    # materialized), then the device's busy share over the pipeline
+    from consent_tpu_torch.config import polish_preset
+    from consent_tpu_torch.io.fasta import ReadIndex
+    from consent_tpu_torch.overlap import minimizer as mz
+
+    index = ReadIndex()
+    for name, codes in draft.items():
+        index.add(name, codes)
+    reads = ReadIndex.from_file(reads_fa)
+    read_list = [(n, reads[n]) for n in reads.names()]
+    for name, codes in read_list:
+        index.add(name, codes)
+    cfg = polish_preset(n_workers=os.cpu_count())
+    t0 = time.perf_counter()
+    piles = list(mz.map_to_targets_piles(list(draft.items()), read_list,
+                                         mz.OverlapParams(), cfg.max_support))
+    res["overlap_wall_s"] = time.perf_counter() - t0
+    log(f"[polish] overlap: {len(piles)} piles in "
+        f"{res['overlap_wall_s']:.3f} s")
+    res["profile"] = phase_profile("polish", piles, index, cfg)
+    return res
+
+
+def phase_polish_deep(workdir):
+    """Deep piles: 100x reads over contigs of 25 kb fill the 152-slot
+    fragment bucket; the banded kernel must launch from it and the
+    polished contigs must beat the draft."""
+    genome, _, reads_fa = simulate_reads(workdir, "deep", **DEEP)
+    truth, draft = cut_contigs(genome, DEEP_CONTIGS,
+                               len(genome) // DEEP_CONTIGS,
+                               np.random.default_rng(3), POLISH_DRAFT_ERR)
+    asm_fa = os.path.join(workdir, "deep_draft.fasta")
+    write_fasta(asm_fa, draft.items())
+    out_fa = os.path.join(workdir, "deep_polished.fasta")
+    res = run_polish("deep", asm_fa, reads_fa, out_fa)
+    hist = res["lane_histogram"]["banded_posterior"]
+    deep = {n: hist.get(n, 0) for n in DEEP_LANES}
+    if not sum(deep.values()):
+        raise AssertionError(f"[deep] no banded launch from the 152-slot "
+                             f"bucket: {hist}")
+    res.update(score_polish("deep", out_fa, truth, draft))
+    return res
+
+
+def phase_profile(tag, piles, index, cfg):
+    """The device's busy share over one chunk of piles: CUDA time
+    recorded by torch.profiler over the wall time of process_piles under
+    the profiler (which adds its own host overhead, so the share is a
+    lower bound for an unprofiled run)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from consent_tpu_torch.config import correct_preset
-    from consent_tpu_torch.io.fasta import ReadIndex
     from consent_tpu_torch.pipeline import engine
 
-    index = ReadIndex()
-    for rd in reads:
-        index.add(rd.name, rd.codes)
-    cfg = correct_preset(n_workers=os.cpu_count())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -551,8 +799,8 @@ def phase_profile(piles, reads):
     kernel_s = {name: sum(s for k, s in by_op
                           if re.search(rf"\b{name}(_\w+)?_kernel<", k))
                 for name in REPLACES}
-    log(f"[profile] {len(piles)} piles: wall {wall_s:.3f} s, device "
-        f"{device_s:.3f} s ({100 * device_s / wall_s:.1f}% busy), kernels "
+    log(f"[{tag}] profile of {len(piles)} piles: wall {wall_s:.3f} s, "
+        f"device {device_s:.3f} s ({100 * device_s / wall_s:.1f}% busy), kernels "
         f"{kernel_s}; top: "
         + ", ".join(f"{k} {s:.3f} s" for k, s in by_op[:6]))
     return dict(n_piles=len(piles), wall_s=wall_s, device_s=device_s,
@@ -574,7 +822,13 @@ def main() -> int:
     consensus_call = phase_consensus_call(rng)
     phase_card_vs_cpu()
     with tempfile.TemporaryDirectory() as workdir:
-        main_res = phase_main(GENOME_LEN, workdir)
+        genome, reads, reads_fa = simulate_reads(
+            workdir, "main", genome_len=GENOME_LEN, **E2E)
+        main_res = phase_main(genome, reads, reads_fa, workdir)
+        del reads
+        phase_polish_card_vs_cpu(workdir)
+        polish_res = phase_polish(genome, reads_fa, workdir)
+        deep_res = phase_polish_deep(workdir)
 
     kernels = []
     for res in (banded[0], full[256]):
@@ -583,6 +837,8 @@ def main() -> int:
             source=f"consent_tpu_torch/csrc/{res['name']}.cu",
             replaces=REPLACES[res["name"]], equal=res["equal"],
             launches=main_res["launches"][res["name"]],
+            launches_polish=polish_res["launches"][res["name"]],
+            launches_polish_deep=deep_res["launches"][res["name"]],
             max_abs_err=res["max_abs_err"], ms=res["kernel_ms"],
             kernel_ms=res["kernel_ms"], plain_ms=res["plain_ms"],
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
@@ -590,11 +846,15 @@ def main() -> int:
             shape=dict(N=res["N"], Lq=res["Lq"], W=res["W"],
                        band=res["band"]),
         ))
-    # the full-width kernel at N = 1,024 and 64, beside the timed N = 256
-    for n in (1024, 64):
-        kernels[1][f"ms_n{n}"] = full[n]["kernel_ms"]
-        kernels[1][f"plain_ms_n{n}"] = full[n]["plain_ms"]
-        kernels[1][f"bound_ms_n{n}"] = full[n]["bound_ms"]
+    # other lane counts beside the timed ones: the banded kernel's deep
+    # 152-slot bucket (polish), the full-width kernel's 1,024, 64 and 32
+    banded_by_n = {res["N"]: res for res in banded}
+    for k, by_n, ns in ((0, banded_by_n, (3952, 988)),
+                        (1, full, (1024, 64, 32))):
+        for n in ns:
+            kernels[k][f"ms_n{n}"] = by_n[n]["kernel_ms"]
+            kernels[k][f"plain_ms_n{n}"] = by_n[n]["plain_ms"]
+            kernels[k][f"bound_ms_n{n}"] = by_n[n]["bound_ms"]
     detail = dict(card=card, build_s=build_s, banded_warm=banded[1],
                   banded_cases=banded_cases,
                   full={n: {k: res[k] for k in ("kernel_ms", "plain_ms",
@@ -603,7 +863,7 @@ def main() -> int:
                         for n, res in full.items()},
                   full_widths=full_widths,
                   consensus_call=consensus_call,
-                  main=main_res)
+                  main=main_res, polish=polish_res, polish_deep=deep_res)
     print(json.dumps(detail))
     print(json.dumps({"kernels": kernels}))
     print(card)

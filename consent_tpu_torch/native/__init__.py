@@ -45,6 +45,20 @@ def get_lib() -> ctypes.CDLL:
 
         lib.encode_seq.argtypes = [ctypes.c_char_p, ctypes.c_int64, u8p]
         lib.revcomp.argtypes = [u8p, ctypes.c_int64, u8p]
+        lib.count_kmers_touched.argtypes = [
+            u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int, i32p, i64p
+        ]
+        lib.count_kmers_touched.restype = ctypes.c_int64
+        lib.polish_correction.argtypes = [
+            u8p, u8p, ctypes.c_int64, i32p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int,
+            u8p, u8p, ctypes.c_int64,
+        ]
+        lib.polish_correction.restype = ctypes.c_int64
+        lib.count_anchors.argtypes = [
+            u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int, ctypes.c_int
+        ]
+        lib.count_anchors.restype = ctypes.c_int64
         lib.host_post_window.argtypes = [
             u8p, i64p, i64p, ctypes.c_int64,
             u8p, ctypes.c_int64,
@@ -104,6 +118,65 @@ def get_lib() -> ctypes.CDLL:
         lib.stitch_apply_round.restype = None
         _lib = lib
         return _lib
+
+
+def polish_correction_native(codes, solid, counts, k, solid_thresh,
+                             max_branches=50, zone=3):
+    """Native DBG repair; returns (codes, solid), or None when the
+    output capacity check fails (caller falls back to core.dbg)."""
+    lib = get_lib()
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    solid = np.ascontiguousarray(
+        np.asarray(solid).astype(np.uint8)
+    )
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    cap = 2 * len(codes) + 256
+    out_c = np.empty(cap, dtype=np.uint8)
+    out_s = np.empty(cap, dtype=np.uint8)
+    n = lib.polish_correction(
+        codes, solid, len(codes), counts, k, solid_thresh,
+        max_branches, zone,
+        out_c, out_s, cap,
+    )
+    if n < 0:
+        return None
+    return out_c[:n].copy(), out_s[:n].astype(bool)
+
+
+def count_anchors_native(frag_list, k, support):
+    """Native anchor count over one window's sequences (template first);
+    the same statistic as ops.kmer.count_anchors_host."""
+    lib = get_lib()
+    if not frag_list:
+        return 0
+    lens = np.array([len(f) for f in frag_list], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    blob = np.concatenate(
+        [np.ascontiguousarray(f, dtype=np.uint8) for f in frag_list]
+    ) if lens.sum() else np.zeros(1, np.uint8)
+    return int(lib.count_anchors(blob, lens, offsets, len(frag_list), k,
+                                 support))
+
+
+def count_kmers_sparse_native(frag_list, k):
+    """Native dense k-mer counting that also returns the sorted
+    distinct k-mers, skipping the 4^k flatnonzero scan; returns
+    (dense, sorted_kmers)."""
+    lib = get_lib()
+    counts = np.zeros(4 ** k, dtype=np.int32)
+    if not frag_list:
+        return counts, np.empty(0, dtype=np.int64)
+    lens = np.array([len(f) for f in frag_list], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    blob = np.concatenate(
+        [np.ascontiguousarray(f, dtype=np.uint8) for f in frag_list]
+    ) if lens.sum() else np.zeros(1, np.uint8)
+    cap = int(np.maximum(lens - k + 1, 0).sum())
+    touched = np.empty(max(cap, 1), dtype=np.int64)
+    nt = lib.count_kmers_touched(blob, lens, offsets, len(frag_list),
+                                 k, counts, touched)
+    keys = np.sort(touched[:nt])
+    return counts, keys
 
 
 def host_post_window_native(frag_list, cons, k, solid_thresh,

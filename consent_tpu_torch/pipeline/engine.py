@@ -26,10 +26,12 @@ import numpy as np
 import torch
 
 from consent_tpu_torch.config import ConsentConfig
+from consent_tpu_torch.core import dbg as dbg_mod
 from consent_tpu_torch.core import postprocess, windows as win_mod
 from consent_tpu_torch.core.sparse_counts import SparseCounts
 from consent_tpu_torch.io.paf import Pile
 from consent_tpu_torch.ops import consensus as cons_ops
+from consent_tpu_torch.ops import kmer as kmer_ops
 from consent_tpu_torch.ops.align import Scoring
 from consent_tpu_torch.pipeline import stitch as stitch_mod
 from consent_tpu_torch.pipeline.device_align import resolve_device
@@ -211,7 +213,8 @@ class ConsensusEngine:
 
     def _host_post(self, ts, S, cons_list):
         """Host post-processing: counts, anchor gate, weighting, DBG
-        polish, in the native C++ library.
+        polish, in the native C++ library (step by step, with a Python
+        DBG repair, for windows that fail its capacity checks).
 
         The native path runs whole window SLICES per ctypes call
         (host.cpp host_post_batch), fanned out over the shared
@@ -278,12 +281,47 @@ class ConsensusEngine:
             cfg.max_branches, cfg.dbg_zone, cfg.min_anchors,
             min(cfg.common_kmers, len(use) // 2),
         )
-        if one is None:
-            raise RuntimeError(
-                "native host_post_window failed (output capacity); the "
-                "Python host fallback is not ported"
+        if one is not None:
+            t.consensus, t.solid, t.counts = one
+            return
+        # an output capacity check failed: the chain step by step, with
+        # the DBG repair in Python when the native one fails too
+        dense, keys = native.count_kmers_sparse_native(use, cfg.mer_size)
+        sparse = SparseCounts(keys, dense[keys].astype(np.int32))
+        # MSA give-up gate (-c/-a): windows with fewer than
+        # min_anchors anchor k-mers keep the raw template,
+        # unweighted and unpolished (correctionMSA.cpp:31-36
+        # returns piles[0], an uppercase = all-solid string).
+        bmean_sup = min(cfg.common_kmers, len(use) // 2)
+        n_anch = native.count_anchors_native(use, cfg.mer_size, bmean_sup)
+        if n_anch < cfg.min_anchors:
+            tpl_f = np.asarray(t.frags[0], dtype=np.uint8)
+            t.consensus = tpl_f
+            t.solid = np.ones(len(tpl_f), dtype=bool)
+            t.counts = sparse
+            return
+        if len(cons) >= cfg.mer_size:
+            solid = kmer_ops.solidity_mask(
+                cons, dense, cfg.mer_size, cfg.solid_thresh
             )
-        t.consensus, t.solid, t.counts = one
+            res = native.polish_correction_native(
+                cons, solid, dense, cfg.mer_size, cfg.solid_thresh,
+                cfg.max_branches, cfg.dbg_zone,
+            )
+            if res is not None:
+                cons, solid = res
+            else:
+                cons, solid = dbg_mod.polish_correction(
+                    cons, solid, dense, cfg.mer_size, cfg.solid_thresh,
+                    cfg.max_branches, cfg.dbg_zone,
+                )
+        else:
+            # too short for weighting: reference skips weighting and
+            # polish (correctionMSA.cpp:43-46); keep as weak
+            solid = np.zeros(len(cons), dtype=bool)
+        t.consensus = cons
+        t.solid = solid
+        t.counts = sparse
 
 
 def windows_of_pile(pile: Pile, read_index, cfg: ConsentConfig,

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import sys
 import threading
 import time
@@ -67,10 +68,19 @@ GLOBAL_STATS = StageStats()
 
 @contextlib.contextmanager
 def profiler_trace(logdir: str | None) -> Iterator[None]:
-    """Profiler trace context: a no-op without a log directory.
-    Tracing through torch.profiler is not ported yet."""
-    if logdir:
-        raise NotImplementedError(
-            "--profile-dir is not supported by consent_tpu_torch yet"
-        )
-    yield
+    """torch.profiler trace context (no-op when logdir is None): host
+    ops, and the card's kernels and copies when there is a card, written
+    as a Chrome trace to <logdir>/trace-<pid>.json."""
+    if not logdir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, f"trace-{os.getpid()}.json"))

@@ -1,8 +1,9 @@
 """Guards of the PyTorch port: it imports neither jax nor consent_tpu,
 its device entry points refuse to run on a missing card, the paths it
-does not have yet raise, and its copied host modules still match the
-JAX package's originals."""
+does not have yet raise, and its copied host modules and functions
+still match the JAX package's originals."""
 
+import ast
 import os
 import re
 import subprocess
@@ -20,6 +21,17 @@ VERBATIM = [
     "core/windows.py", "core/sparse_counts.py", "core/postprocess.py",
     "core/npalign.py", "utils/hostpool.py", "overlap/minimizer.py",
     "testing/simulate.py", "testing/metrics.py", "pipeline/stitch.py",
+    "pipeline/checkpoint.py", "core/dbg.py", "tools.py",
+]
+
+# functions copied from consent_tpu into modules that differ elsewhere
+VERBATIM_FUNCTIONS = [
+    ("parallel/multihost.py", "shard_piles"),
+    ("parallel/multihost.py", "shard_path"),
+    ("parallel/multihost.py", "merge_shards"),
+    ("ops/kmer.py", "count_kmers_host"),
+    ("ops/kmer.py", "count_anchors_host"),
+    ("ops/kmer.py", "solidity_mask"),
 ]
 
 ISOLATED = textwrap.dedent(
@@ -66,6 +78,8 @@ ISOLATED = textwrap.dedent(
     raises(lambda: device_align.FixedAligner(cfg))
     raises(lambda: next(engine.process_piles(iter([]), None, cfg)))
     raises(lambda: cli.main_correct(["--in", "x.fa", "--out", "y.fa"]))
+    raises(lambda: cli.main_polish(["--contigs", "x.fa", "--reads", "y.fa",
+                                    "--out", "z.fa"]))
     print("MODULES", len(names))
     """
 )
@@ -94,6 +108,41 @@ def test_copied_modules_match_originals(rel):
         assert port == orig
 
 
+def _function_source(path, name):
+    with open(path) as f:
+        src = f.read()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.get_source_segment(src, node)
+    raise AssertionError(f"{name} not found in {path}")
+
+
+@pytest.mark.parametrize("rel, name", VERBATIM_FUNCTIONS,
+                         ids=[f"{r}:{n}" for r, n in VERBATIM_FUNCTIONS])
+def test_copied_functions_match_originals(rel, name):
+    orig = _function_source(os.path.join(REPO, "consent_tpu", rel), name)
+    port = _function_source(os.path.join(REPO, "consent_tpu_torch", rel), name)
+    assert port == re.sub(r"\bconsent_tpu\b", "consent_tpu_torch", orig)
+
+
+def test_console_scripts_name_the_port_entry_points():
+    import importlib
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    port = {k: v for k, v in scripts.items() if k.startswith("consent-torch-")}
+    assert sorted(port) == ["consent-torch-correct", "consent-torch-eval",
+                            "consent-torch-merge-shards",
+                            "consent-torch-polish"]
+    for name, target in port.items():
+        mod, fn = target.split(":")
+        assert mod.startswith("consent_tpu_torch.")
+        assert callable(getattr(importlib.import_module(mod), fn))
+        assert scripts[name.replace("-torch", "")] == target.replace(
+            "consent_tpu_torch.", "consent_tpu.")
+
+
 def test_native_source_is_the_originals():
     with open(os.path.join(REPO, "consent_tpu", "native", "host.cpp")) as f:
         orig = f.read()
@@ -102,10 +151,13 @@ def test_native_source_is_the_originals():
         assert f.read() == orig
 
 
-def test_unported_paths_raise(tmp_path):
+def test_unported_paths_raise():
+    """Multi-GPU (n_devices / frag_devices > 1) is the one path not
+    ported yet; --resume, --process-count and --profile-dir run
+    (tests/test_torch_resume.py)."""
     import dataclasses
 
-    from consent_tpu_torch import cli, correct_preset
+    from consent_tpu_torch import correct_preset
     from consent_tpu_torch.config import from_reference
     from consent_tpu_torch.pipeline import engine
 
@@ -114,13 +166,5 @@ def test_unported_paths_raise(tmp_path):
         with pytest.raises(NotImplementedError):
             engine.ConsensusEngine(dataclasses.replace(cfg, **bad),
                                    device="cpu")
-    fa = tmp_path / "r.fa"
-    fa.write_text(">r\nACGT\n")
-    base = ["--in", str(fa), "--out", str(tmp_path / "o.fa"),
-            "--device", "cpu", "--overlapper", "native"]
-    for extra in (["--resume"], ["--process-count", "2"],
-                  ["--profile-dir", str(tmp_path)]):
-        with pytest.raises(NotImplementedError):
-            cli.main_correct(base + extra)
     with pytest.raises(ValueError):
         from_reference({**dataclasses.asdict(cfg), "extra_knob": 1})
