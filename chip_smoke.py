@@ -20,31 +20,44 @@ consent_tpu).  Phases, each failing the run by raising:
      scoring, random bases past each query's end.  Then 16 lanes at
      widths 768, 896, 1,000 and 1,024 (the one-warp-per-lane kernel's
      widest instantiations), and at 1,152 to 4,096 or with a gap cap of
-     16 (the one-block-per-lane kernel).  Same checks.  Then one whole
-     consensus device call (B = 256, S = 16, 2 rounds) is timed.
-  4. the main path: process_piles on the card against the CPU path on
-     a small simulation (byte-identical), then `cli.main_correct` on
-     the benchmarks/e2e_bench.py workload (3.35 Mb genome, 10x, 4 kb
-     reads, 10% error, seed 7) with both kernels' launch counters reset
-     just before and read just after, with the full-width kernel's
-     launches by lane count; 600 reads scored against the truth as
-     e2e_bench.py samples them, identity >= 0.98 required;
-     then a torch.profiler trace of one 1,024-read chunk gives the
-     device's busy share and each kernel's device seconds.
-  5. polish: `cli.main_polish` on tests/test_cli.py's small draft on the
+     16 (the one-block-per-lane kernel).  Same checks.
+  4. repairs: the banded kernel at bands 384, 640, 768 and 896, and the
+     full-width kernel at W = 4,224 and 8,192 (64 lanes) and 16,384 (2
+     lanes, hm scratch in lane chunks), all six outputs equal to the
+     plain version's; kernel ms and lane-chunk counts.
+  5. graphs: every consensus call shape of correct_preset() (12, the
+     deep 152-slot bucket's among them) and the stitch's span call at
+     N = 16, 256 and 1,024 captured as CUDA graphs, the graph memory
+     poisoned, then each replay byte-equal to the eager call on seeded
+     inputs and counted in the launch counters; one consensus call
+     (B = 256, S = 16, 2 rounds) timed eager against graph in turns.
+     Then one whole consensus device call timed as before (eager).
+  6. the main path, with graphs: process_piles on the card against the
+     CPU path on a small simulation (byte-identical), then
+     `cli.main_correct` on the benchmarks/e2e_bench.py workload (3.35 Mb
+     genome, 10x, 4 kb reads, 10% error, seed 7) with both kernels'
+     launch counters reset just before and read just after (replays
+     count), the graphs replayed, stage thread-seconds and the
+     full-width kernel's launches by lane count; 600 reads scored
+     against the truth as e2e_bench.py samples them, identity >= 0.98
+     required; then a torch.profiler trace of one 1,024-read chunk
+     gives the device's busy share and each kernel's device seconds,
+     and the same chunk runs eager, graph, graph, eager (same bytes).
+  7. polish: `cli.main_polish` on tests/test_cli.py's small draft on the
      card and on the CPU (byte-identical), and twice more on the card
      with --resume (byte-identical again); then the polish workload at
      full size (benchmarks/polish_bench.py's shape: the main phase's
      3.35 Mb genome cut into 86 contigs of >= 5 kb, a 1%-error draft,
      the main phase's 10x reads), launch counters reset just before,
      every contig scored, polished > draft and >= 0.99 required, both
-     kernels launched; then deep piles (150 kb at 100x in 6 contigs of
-     25 kb), which must launch the banded kernel from the 152-slot
-     fragment bucket and polish above the draft.
-  6. a detail JSON line, one JSON line of per-kernel results, the card
+     kernels launched, consensus graphs replayed; then deep piles (150
+     kb at 100x in 6 contigs of 25 kb), which must launch the banded
+     kernel from the 152-slot fragment bucket and polish above the
+     draft.
+  8. a detail JSON line, one JSON line of per-kernel results, the card
      line, and the final {"ok": true, "device": ...} line.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py [--only PHASE,...]  (no option: every phase)
 """
 
 from __future__ import annotations
@@ -184,9 +197,11 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def kernel_vs_plain(name, q, q_len, r, r_len, d0, sc, reps):
+def kernel_vs_plain(name, q, q_len, r, r_len, d0, sc, reps, plain_reps=1):
     """Exact equality of the kernel and its plain version on the card,
-    then both timed; returns a result dict."""
+    then both timed (the plain version over plain_reps calls after a
+    warm-up; plain_reps = 0 times the comparison's own call); returns
+    a result dict."""
     import torch
 
     from consent_tpu_torch.ops import align as align_ops
@@ -206,7 +221,12 @@ def kernel_vs_plain(name, q, q_len, r, r_len, d0, sc, reps):
             *t[:4], sc, d0=t[4] if sc.band else None)
 
     got = kernel()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
     want = plain()
+    t1.record()
     torch.cuda.synchronize()
     max_err = 0
     for field in want._fields:
@@ -222,7 +242,7 @@ def kernel_vs_plain(name, q, q_len, r, r_len, d0, sc, reps):
                 f"({int((a != b).sum())} elements, max |diff| {diff})")
     matched_frac = want.matched.float().mean().item()
     kernel_ms = cuda_ms(kernel, reps)
-    plain_ms = cuda_ms(plain, 1)
+    plain_ms = cuda_ms(plain, plain_reps) if plain_reps else t0.elapsed_time(t1)
 
     N, Lq = q.shape
     W = r.shape[1]
@@ -233,8 +253,8 @@ def kernel_vs_plain(name, q, q_len, r, r_len, d0, sc, reps):
     else:
         cells = int((rows * np.minimum(r_len, W)).sum())
     ops = alu_per_cell(sc) * cells
-    if name == "full_posterior":
-        ops //= 2                    # two int16 cells per s16x2 instruction
+    if name == "full_posterior" and W <= 1024 and not sc.max_hgap:
+        ops //= 2     # the warp kernel: two int16 cells per s16x2 instruction
     in_bytes = q.nbytes + r.nbytes + q_len.nbytes + r_len.nbytes + (
         d0.nbytes if sc.band else 0)
     out_bytes = 4 * N + N * W * (1 + 4 * 4)
@@ -414,6 +434,219 @@ def phase_full_widths(rng):
     return out
 
 
+def phase_repairs(rng):
+    """Shapes the port raised on before (ROADMAP Queue 3): the banded
+    kernel at bands 384, 640, 768 and 896 (12 to 28 slots per thread;
+    q 512, template 640, or 1,024 where the band exceeds 640), and the
+    full-width kernel at W = 4,224 and 8,192 (64 lanes) and 16,384 (2
+    lanes), exact gaps, stitch scoring, one block per lane with 8 and 16
+    columns per thread, hm scratch in lane chunks.  All six outputs
+    equal to the plain version's (tolerance 0)."""
+    from consent_tpu_torch.config import correct_preset
+    from consent_tpu_torch.ops import cuda_align
+    from consent_tpu_torch.ops.align import Scoring
+    from consent_tpu_torch.pipeline.device_align import _SCORING
+
+    cfg = correct_preset()
+    sc = Scoring(cfg.match_score, cfg.mismatch_score, cfg.gap_open,
+                 cfg.gap_extend, cfg.consensus_max_hgap, cfg.consensus_band)
+    bands = []
+    for band in (384, 640, 768, 896):
+        W = 640 if band <= 640 else 1024
+        q, q_len, r, r_len, d0 = near_diagonal_lanes(rng, 256, 512, W)
+        tail = np.arange(512)[None, :] >= q_len[:, None]
+        q[tail] = rng.integers(0, 4, int(tail.sum()))
+        res = kernel_vs_plain("banded_posterior", q, q_len, r, r_len, d0,
+                              sc._replace(band=band), reps=5)
+        log(f"[repair] banded N=256, band {band}, W={W}: equal; kernel "
+            f"{res['kernel_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
+            f"bound {res['bound_ms']:.3f} ms, matched "
+            f"{res['matched_frac']:.3f}")
+        bands.append({k: res[k] for k in ("N", "W", "band", "kernel_ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "matched_frac")})
+    widths = []
+    for N, W in ((64, 4224), (64, 8192), (2, 16384)):
+        if N >= 6:
+            q, q_len, r, r_len, d0 = full_lanes(rng, N, W)
+        else:
+            # a full query row, and one half as long at an offset; random
+            # bases past each query's end
+            r = rng.integers(0, 4, (N, W)).astype(np.uint8)
+            r_len = np.full(N, W, np.int32)
+            d0 = np.array([0] + [W // 4] * (N - 1), np.int32)
+            q_len = np.array([W] + [W // 2] * (N - 1), np.int32)
+            q = walk_fragments(rng, r, d0, q_len, W)
+            tail = np.arange(W)[None, :] >= q_len[:, None]
+            q[tail] = rng.integers(0, 4, int(tail.sum()))
+        res = kernel_vs_plain("full_posterior", q, q_len, r, r_len, d0,
+                              _SCORING, reps=2, plain_reps=0)
+        chunks = len(cuda_align.full_lane_chunks(N, W, W))
+        log(f"[repair] full N={N}, W={W}: equal; kernel "
+            f"{res['kernel_ms']:.3f} ms in {chunks} lane chunk(s), plain "
+            f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+            f"({res['bound_by']}), matched {res['matched_frac']:.3f}")
+        widths.append(dict(N=N, W=W, lane_chunks=chunks,
+                           **{k: res[k] for k in ("kernel_ms", "plain_ms",
+                                                  "bound_ms", "bound_by",
+                                                  "matched_frac")}))
+    return dict(bands=bands, widths=widths)
+
+
+def poison_graph_memory(dev, byte=0xA5):
+    """Every byte of the device's graph pool and of every captured
+    call's static input set to `byte`: a replay that read memory no
+    kernel of it wrote would now change its output."""
+    import torch
+
+    from consent_tpu_torch.ops import graphs as graph_ops
+
+    torch.cuda.synchronize()
+    total = 0
+    for addr, n in graph_ops.pool_segments(dev):
+        storage = torch._C._construct_storage_from_data_pointer(addr, dev, n)
+        torch.empty(0, dtype=torch.uint8, device=dev).set_(storage).fill_(byte)
+        total += n
+    for call in graph_ops.calls().values():
+        call.static_in.fill_(byte)
+    torch.cuda.synchronize()
+    return total
+
+
+def consensus_inputs(rng, eng, B, S):
+    """One seeded wire buffer of B windows x S slots: fragments walked
+    off each window's template at small offsets, ragged piles."""
+    from consent_tpu_torch.ops import consensus as cons_ops
+
+    cfg, Lf, Lt = eng.cfg, eng.Lf, eng.Lt
+    tpl = rng.integers(0, 4, (B, Lt)).astype(np.uint8)
+    tpl_len = rng.integers(cfg.window_size, Lt - 20, B).astype(np.int32)
+    frag_len = rng.integers(Lf - 60, Lf + 1, (B, S)).astype(np.int32)
+    frag_len[:, max(1, 3 * S // 4):] = 0                  # ragged piles
+    frag_len[-1, 1:] = 0                                  # a lone template
+    d0 = rng.integers(-10, 10, (B, S)).astype(np.int32)
+    frags = walk_fragments(rng, np.repeat(tpl, S, axis=0), d0.reshape(-1),
+                           frag_len.reshape(-1), Lf).reshape(B, S, Lf)
+    frags[:, 0] = tpl[:, :Lf]                             # template first
+    frag_len[:, 0] = np.minimum(tpl_len, Lf)
+    return cons_ops.wire_encode_inputs(cons_ops.pack_bases_host(frags),
+                                       frag_len, tpl, tpl_len, d0)
+
+
+def stitch_inputs(rng, N, L):
+    """One seeded span-call buffer of N lanes at L x L, the last quarter
+    padding lanes (q_len = r_len = 0), as the stitch pads to a power of
+    two."""
+    from consent_tpu_torch.ops.consensus import pack_bases_host
+
+    q, q_len, r, r_len, _ = full_lanes(rng, N, L)
+    pad = N - N // 4
+    q_len[pad:] = 0
+    r_len[pad:] = 0
+    q[pad:] = 0
+    r[pad:] = 0
+    q[np.arange(L)[None, :] >= q_len[:, None]] = 0
+    r[np.arange(L)[None, :] >= r_len[:, None]] = 0
+    ln = np.stack([q_len, r_len], axis=1).astype(np.int32)
+    return np.concatenate([pack_bases_host(q), pack_bases_host(r),
+                           ln.view(np.uint8)], axis=1)
+
+
+def wall_ms(fn, reps):
+    """Host milliseconds per call of fn (each waits for its result)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_graphs(rng):
+    """Every consensus call shape of correct_preset() (the 12 keys of
+    ConsensusEngine.call_shapes(), the deep 152-slot bucket's among
+    them) and the stitch's span call at N = 16, 256 and 1,024 (640 x
+    640) captured, the graph memory poisoned, then each replayed against
+    the eager call on the same seeded input: byte-equal outputs, and
+    every replay adds its graph's launches to the counts.  Then one
+    consensus call (B = 256, S = 16), eager against graph, in turns."""
+    import functools
+
+    import torch
+
+    from consent_tpu_torch.config import correct_preset
+    from consent_tpu_torch.ops import cuda_align
+    from consent_tpu_torch.ops import graphs as graph_ops
+    from consent_tpu_torch.pipeline import device_align
+    from consent_tpu_torch.pipeline.engine import ConsensusEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = correct_preset()
+    t0 = time.perf_counter()
+    eng = ConsensusEngine(cfg, device=dev)
+    cons_capture_s = time.perf_counter() - t0
+    shapes = sorted(eng.call_shapes())
+    stitch = {}
+    t0 = time.perf_counter()
+    for N in (16, 256, 1024):
+        fn = functools.partial(device_align._spans_wire_body, Lq=640, Lr=640)
+        stitch[N] = (fn, graph_ops.captured(("stitch", N, 640, 640), fn,
+                                            (N, 2 * 640 // 4 + 8), dev))
+    stitch_capture_s = time.perf_counter() - t0
+    poisoned = poison_graph_memory(dev)
+    log(f"[graphs] captured {len(shapes)} consensus shapes in "
+        f"{cons_capture_s:.3f} s and 3 stitch shapes in "
+        f"{stitch_capture_s:.3f} s; poisoned {poisoned} bytes of graph "
+        f"memory")
+
+    def check(tag, call, eager_fn, buf):
+        before = sum(cuda_align.launch_counts().values())
+        got = call(buf).result()
+        added = sum(cuda_align.launch_counts().values()) - before
+        want = graph_ops.run_eager(eager_fn, buf, dev).result()
+        if got.dtype != want.dtype or got.shape != want.shape or \
+                not np.array_equal(got, want):
+            raise AssertionError(f"[graphs] {tag}: replay differs from the "
+                                 f"eager call")
+        if not call.launches or added != len(call.launches):
+            raise AssertionError(f"[graphs] {tag}: replay counted {added} "
+                                 f"launches, recorded {call.launches}")
+
+    for S, B in shapes:
+        call = eng._captured(S, B, eng.rounds)
+        check(f"consensus S={S} B={B}", call, eng._wire_fn(S, eng.rounds),
+              consensus_inputs(rng, eng, B, S))
+    for N, (fn, call) in stitch.items():
+        check(f"stitch N={N}", call, fn, stitch_inputs(rng, N, 640))
+    log(f"[graphs] {len(shapes)} consensus and {len(stitch)} stitch replays "
+        f"byte-equal to the eager calls from poisoned memory")
+
+    # one consensus call, eager against graph, in turns
+    buf = consensus_inputs(rng, eng, 256, 16)
+    call = eng._captured(16, 256, eng.rounds)
+    fn = eng._wire_fn(16, eng.rounds)
+    turns = []
+    for mode in ("eager", "graph", "graph", "eager"):
+        if mode == "graph":
+            ms = wall_ms(lambda: call(buf).result(), 20)
+        else:
+            ms = wall_ms(lambda: graph_ops.run_eager(fn, buf, dev).result(), 20)
+        turns.append((mode, ms))
+    eager_ms = [ms for m, ms in turns if m == "eager"]
+    graph_ms = [ms for m, ms in turns if m == "graph"]
+    st = graph_ops.stats()
+    log(f"[graphs] one consensus call (B=256, S=16, {eng.rounds} rounds, "
+        f"upload and download included), in turns: "
+        + ", ".join(f"{m} {ms:.3f} ms" for m, ms in turns)
+        + f"; {st['graphs']} graphs, pool {st['pool_bytes']} bytes, "
+        f"capture {st['capture_s']:.3f} s")
+    return dict(consensus_shapes=shapes, stitch_lanes=sorted(stitch),
+                consensus_capture_s=cons_capture_s,
+                stitch_capture_s=stitch_capture_s, poisoned_bytes=poisoned,
+                call_turns=turns, call_eager_ms=eager_ms,
+                call_graph_ms=graph_ms, graphs=st["graphs"],
+                pool_bytes=st["pool_bytes"])
+
+
 def phase_card_vs_cpu():
     """process_piles on the card and on the CPU (plain versions) on a
     small simulation must give the same bytes."""
@@ -487,6 +720,7 @@ def phase_main(genome, reads, reads_fa, workdir):
     from consent_tpu_torch.io import seqs
     from consent_tpu_torch.io.fasta import iter_fastx
     from consent_tpu_torch.ops import cuda_align
+    from consent_tpu_torch.ops import graphs as graph_ops
     from consent_tpu_torch.overlap import minimizer as mz
     from consent_tpu_torch.config import correct_preset
     from consent_tpu_torch.utils.observe import GLOBAL_STATS
@@ -502,6 +736,7 @@ def phase_main(genome, reads, reads_fa, workdir):
     out_fa = os.path.join(workdir, "corrected.fasta")
     GLOBAL_STATS.seconds.clear()
     GLOBAL_STATS.counts.clear()
+    graphs_before = graph_ops.stats()["by_kind"]
     cuda_align.reset_launch_counts()
     t0 = time.perf_counter()
     rc = cli.main_correct(["--in", reads_fa, "--out", out_fa,
@@ -515,12 +750,21 @@ def phase_main(genome, reads, reads_fa, workdir):
         if n == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"main path")
+    graphs = graph_delta(graphs_before)
+    if not graphs.get("consensus", {}).get("replays"):
+        raise AssertionError(f"main_correct replayed no consensus graph: "
+                             f"{graphs}")
     stats = GLOBAL_STATS.snapshot()
     n_windows = stats["counts"].get("windows.total", 0)
     pipe_s = stats["seconds"].get("consent-correct.pipeline", correct_s)
+    stage_s = {k: v for k, v in sorted(stats["seconds"].items())
+               if k != "consent-correct.pipeline"}
     log(f"[main] main_correct {correct_s:.3f} s (streamed overlap + "
         f"pipeline {pipe_s:.3f} s), {n_windows} windows, "
         f"{n_windows / pipe_s:.2f} windows/s, launches {launches}")
+    log(f"[main] graphs captured and replayed in main_correct: {graphs}")
+    log(f"[main] stage thread-seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage_s.items()))
     log(f"[main] full_posterior launches by lane count: "
         f"{lane_hist['full_posterior']}")
 
@@ -556,10 +800,12 @@ def phase_main(genome, reads, reads_fa, workdir):
     index = ReadIndex()
     for rd in reads:
         index.add(rd.name, rd.codes)
-    profile = phase_profile("main", piles[:1024], index,
-                            correct_preset(n_workers=os.cpu_count()))
+    chunk_cfg = correct_preset(n_workers=os.cpu_count())
+    profile = phase_profile("main", piles[:1024], index, chunk_cfg)
+    chunk_turns = eager_vs_graph(piles[:1024], index, chunk_cfg)
     return dict(
-        profile=profile,
+        profile=profile, chunk_turns=chunk_turns, graphs=graphs,
+        stage_thread_s=stage_s,
         genome_len=len(genome), n_reads=len(reads), n_out=len(results),
         n_windows=n_windows, overlap_wall_s=overlap_s,
         correct_wall_s=correct_s, pipeline_wall_s=pipe_s,
@@ -569,15 +815,70 @@ def phase_main(genome, reads, reads_fa, workdir):
     )
 
 
+def graph_delta(before):
+    """Graphs captured and replays made, by kind, since `before`
+    (graph_ops.stats()["by_kind"])."""
+    from consent_tpu_torch.ops import graphs as graph_ops
+
+    out = {}
+    for kind, now in graph_ops.stats()["by_kind"].items():
+        was = before.get(kind, dict(graphs=0, replays=0))
+        out[kind] = {k: now[k] - was[k] for k in now}
+    return out
+
+
+def eager_vs_graph(piles, index, cfg):
+    """process_piles over `piles` op by op against replayed graphs, in
+    turns eager, graph, graph, eager: wall seconds, windows/s and stage
+    thread-seconds of each; the outputs of all four must be the same
+    bytes."""
+    import torch
+
+    from consent_tpu_torch.pipeline import engine
+    from consent_tpu_torch.utils.observe import GLOBAL_STATS
+
+    turns = []
+    first = None
+    for mode in ("eager", "graph", "graph", "eager"):
+        GLOBAL_STATS.seconds.clear()
+        GLOBAL_STATS.counts.clear()
+        t0 = time.perf_counter()
+        out = list(engine.process_piles(iter(piles), index, cfg,
+                                        device="cuda",
+                                        graphs=mode == "graph"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = GLOBAL_STATS.snapshot()
+        n_windows = snap["counts"].get("windows.total", 0)
+        dispatch = snap["seconds"].get("consensus.dispatch", 0.0)
+        turns.append(dict(mode=mode, wall_s=wall, windows=n_windows,
+                          windows_per_s=n_windows / wall,
+                          dispatch_thread_s=dispatch,
+                          stage_thread_s=dict(sorted(snap["seconds"].items()))))
+        log(f"[main] {len(piles)} piles, {mode}: {wall:.3f} s, "
+            f"{n_windows / wall:.2f} windows/s, consensus.dispatch "
+            f"{dispatch:.3f} thread-s")
+        if first is None:
+            first = out
+        elif any(a[0] != b[0] or not np.array_equal(a[1], b[1])
+                 or not np.array_equal(a[2], b[2])
+                 for a, b in zip(first, out)) or len(first) != len(out):
+            raise AssertionError(f"[main] {mode} turn: output differs from "
+                                 f"the first turn's")
+    return turns
+
+
 def run_polish(tag, contigs_fa, reads_fa, out_fa, extra=()):
     """cli.main_polish on the card with launch counters and stage stats
     reset just before; returns its measurements."""
     from consent_tpu_torch import cli
     from consent_tpu_torch.ops import cuda_align
+    from consent_tpu_torch.ops import graphs as graph_ops
     from consent_tpu_torch.utils.observe import GLOBAL_STATS
 
     GLOBAL_STATS.seconds.clear()
     GLOBAL_STATS.counts.clear()
+    graphs_before = graph_ops.stats()["by_kind"]
     cuda_align.reset_launch_counts()
     t0 = time.perf_counter()
     rc = cli.main_polish(["--contigs", contigs_fa, "--reads", reads_fa,
@@ -586,8 +887,12 @@ def run_polish(tag, contigs_fa, reads_fa, out_fa, extra=()):
     wall_s = time.perf_counter() - t0
     launches = cuda_align.launch_counts()
     lane_hist = cuda_align.lane_histogram()
+    graphs = graph_delta(graphs_before)
     if rc != 0:
         raise AssertionError(f"[{tag}] main_polish returned {rc}")
+    if not graphs.get("consensus", {}).get("replays"):
+        raise AssertionError(f"[{tag}] main_polish replayed no consensus "
+                             f"graph: {graphs}")
     stats = GLOBAL_STATS.snapshot()
     n_windows = stats["counts"].get("windows.total", 0)
     pipe_s = stats["seconds"]["consent-polish.pipeline"]
@@ -600,9 +905,10 @@ def run_polish(tag, contigs_fa, reads_fa, out_fa, extra=()):
         + ", ".join(f"{k} {v:.3f}" for k, v in stage_s.items()))
     for name, hist in lane_hist.items():
         log(f"[{tag}] {name} launches by lane count: {hist}")
+    log(f"[{tag}] graphs captured and replayed: {graphs}")
     return dict(wall_s=wall_s, pipeline_wall_s=pipe_s, n_windows=n_windows,
                 windows_per_s=n_windows / pipe_s, stage_thread_s=stage_s,
-                launches=launches, lane_histogram=lane_hist)
+                launches=launches, lane_histogram=lane_hist, graphs=graphs)
 
 
 def score_polish(tag, out_fa, truth, draft):
@@ -808,47 +1114,78 @@ def phase_profile(tag, piles, index, cfg):
                 top=by_op[:12])
 
 
-def main() -> int:
+PHASES = ("banded", "full", "repairs", "graphs", "consensus",
+          "card_vs_cpu", "main", "polish")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phases to run (default: all; "
+                         "anything less ends without the ok line)")
+    only = set(ap.parse_args(argv).only.split(","))
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the card only")
         return 2
     card, build_s = phase_setup()
     rng = np.random.default_rng(0)
-    banded, banded_cases = phase_banded(rng)
-    full = phase_full(rng)
-    full_widths = phase_full_widths(rng)
-    consensus_call = phase_consensus_call(rng)
-    phase_card_vs_cpu()
-    with tempfile.TemporaryDirectory() as workdir:
-        genome, reads, reads_fa = simulate_reads(
-            workdir, "main", genome_len=GENOME_LEN, **E2E)
-        main_res = phase_main(genome, reads, reads_fa, workdir)
-        del reads
-        phase_polish_card_vs_cpu(workdir)
-        polish_res = phase_polish(genome, reads_fa, workdir)
-        deep_res = phase_polish_deep(workdir)
+    res = {}
+    if "banded" in only:
+        res["banded"], res["banded_cases"] = phase_banded(rng)
+    if "full" in only:
+        res["full"] = phase_full(rng)
+        res["full_widths"] = phase_full_widths(rng)
+    if "repairs" in only:
+        res["repairs"] = phase_repairs(rng)
+    if "graphs" in only:
+        res["graphs"] = phase_graphs(rng)
+    if "consensus" in only:
+        res["consensus_call"] = phase_consensus_call(rng)
+    if "card_vs_cpu" in only:
+        phase_card_vs_cpu()
+    if only & {"main", "polish"}:
+        with tempfile.TemporaryDirectory() as workdir:
+            genome, reads, reads_fa = simulate_reads(
+                workdir, "main", genome_len=GENOME_LEN, **E2E)
+            if "main" in only:
+                res["main"] = phase_main(genome, reads, reads_fa, workdir)
+            del reads
+            if "polish" in only:
+                phase_polish_card_vs_cpu(workdir)
+                res["polish"] = phase_polish(genome, reads_fa, workdir)
+                res["polish_deep"] = phase_polish_deep(workdir)
+    if only != set(PHASES):
+        print(json.dumps(dict(card=card, build_s=build_s, **res),
+                         default=str))
+        print(card)
+        log(f"chip_smoke: ran only {sorted(only)}; no ok line")
+        return 3
 
+    banded, full = res["banded"], res["full"]
+    main_res, polish_res = res["main"], res["polish"]
+    deep_res = res["polish_deep"]
     kernels = []
-    for res in (banded[0], full[256]):
+    for r in (banded[0], full[256]):
         kernels.append(dict(
-            name=res["name"], route="cuda",
-            source=f"consent_tpu_torch/csrc/{res['name']}.cu",
-            replaces=REPLACES[res["name"]], equal=res["equal"],
-            launches=main_res["launches"][res["name"]],
-            launches_polish=polish_res["launches"][res["name"]],
-            launches_polish_deep=deep_res["launches"][res["name"]],
-            max_abs_err=res["max_abs_err"], ms=res["kernel_ms"],
-            kernel_ms=res["kernel_ms"], plain_ms=res["plain_ms"],
-            bound_ms=res["bound_ms"], bound_by=res["bound_by"],
+            name=r["name"], route="cuda",
+            source=f"consent_tpu_torch/csrc/{r['name']}.cu",
+            replaces=REPLACES[r["name"]], equal=r["equal"],
+            launches=main_res["launches"][r["name"]],
+            launches_polish=polish_res["launches"][r["name"]],
+            launches_polish_deep=deep_res["launches"][r["name"]],
+            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+            kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None,
-            shape=dict(N=res["N"], Lq=res["Lq"], W=res["W"],
-                       band=res["band"]),
+            shape=dict(N=r["N"], Lq=r["Lq"], W=r["W"], band=r["band"]),
         ))
     # other lane counts beside the timed ones: the banded kernel's deep
     # 152-slot bucket (polish), the full-width kernel's 1,024, 64 and 32
-    banded_by_n = {res["N"]: res for res in banded}
+    banded_by_n = {r["N"]: r for r in banded}
     for k, by_n, ns in ((0, banded_by_n, (3952, 988)),
                         (1, full, (1024, 64, 32))):
         for n in ns:
@@ -856,15 +1193,16 @@ def main() -> int:
             kernels[k][f"plain_ms_n{n}"] = by_n[n]["plain_ms"]
             kernels[k][f"bound_ms_n{n}"] = by_n[n]["bound_ms"]
     detail = dict(card=card, build_s=build_s, banded_warm=banded[1],
-                  banded_cases=banded_cases,
-                  full={n: {k: res[k] for k in ("kernel_ms", "plain_ms",
-                                                "bound_ms", "cells",
-                                                "matched_frac")}
-                        for n, res in full.items()},
-                  full_widths=full_widths,
-                  consensus_call=consensus_call,
+                  banded_cases=res["banded_cases"],
+                  full={n: {k: r[k] for k in ("kernel_ms", "plain_ms",
+                                              "bound_ms", "cells",
+                                              "matched_frac")}
+                        for n, r in full.items()},
+                  full_widths=res["full_widths"], repairs=res["repairs"],
+                  graphs=res["graphs"],
+                  consensus_call=res["consensus_call"],
                   main=main_res, polish=polish_res, polish_deep=deep_res)
-    print(json.dumps(detail))
+    print(json.dumps(detail, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

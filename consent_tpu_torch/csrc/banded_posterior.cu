@@ -35,7 +35,9 @@
 //
 // Design: one warp per lane, LANES_PER_BLOCK warps per block, no block
 // barrier.  Each thread owns SPT = BW/32 consecutive slots (a template
-// parameter: bands of 32, 64, ..., 1,024), and H, F and the backward
+// parameter: bands of 32, 64 and every multiple of 128 up to 1,024, so
+// SPT is 1, 2 or a multiple of 4; nothing in the shift and scan code
+// asks for a power of two), and H, F and the backward
 // states live in registers.  In band coordinates the diagonal
 // predecessor is the same slot of the previous row: no exchange.  The
 // vertical predecessor is slot b+1 (b-1 backward): in-thread for all but
@@ -53,7 +55,8 @@
 // test (one warp-uniform branch per row).  hm is staged in a global
 // scratch the wrapper allocates ([N, Lq, BW] int16; only rows below the
 // lane's query length are written and read), one coalesced 2*SPT-byte
-// store and load per thread and row, loaded two rows ahead in the
+// store and load per thread and row (16-byte accesses when SPT is a
+// multiple of 8, 8-byte ones otherwise), loaded two rows ahead in the
 // backward pass; recomputing hm from (H, F) checkpoints in shared
 // memory instead (probes/banded_recompute.cu) ran at half the speed on
 // the H100, as its extra shared memory leaves a quarter of the warps
@@ -228,7 +231,7 @@ __device__ __forceinline__ void row_sub(int (&sub)[SPT], const uint8_t* t,
     }
 }
 
-// hm staging: SPT int16 per thread and row, one vector access.
+// hm staging: SPT int16 per thread and row, in vector accesses.
 template <int SPT>
 struct HmRow {
     uint32_t w[SPT == 1 ? 1 : SPT / 2];
@@ -245,13 +248,18 @@ __device__ __forceinline__ void store_hm(int16_t* p, const int (&hm)[SPT]) {
             w[k] = __byte_perm(hm[2 * k], hm[2 * k + 1], 0x5410);
         if constexpr (SPT == 2) {
             *reinterpret_cast<uint32_t*>(p) = w[0];
-        } else if constexpr (SPT == 4) {
-            *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-        } else {
+        } else if constexpr (SPT % 8 == 0) {
 #pragma unroll
             for (int k = 0; k < SPT / 8; ++k)
                 reinterpret_cast<uint4*>(p)[k] = make_uint4(
                     w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+        } else {
+            // 4, 12, 20, 28 slots: the thread's 2*SPT bytes start on an
+            // 8-byte boundary only
+#pragma unroll
+            for (int k = 0; k < SPT / 4; ++k)
+                reinterpret_cast<uint2*>(p)[k] =
+                    make_uint2(w[2 * k], w[2 * k + 1]);
         }
     }
 }
@@ -263,11 +271,7 @@ __device__ __forceinline__ HmRow<SPT> load_hm(const int16_t* p) {
         r.w[0] = static_cast<uint32_t>(*p);
     } else if constexpr (SPT == 2) {
         r.w[0] = *reinterpret_cast<const uint32_t*>(p);
-    } else if constexpr (SPT == 4) {
-        const uint2 v = *reinterpret_cast<const uint2*>(p);
-        r.w[0] = v.x;
-        r.w[1] = v.y;
-    } else {
+    } else if constexpr (SPT % 8 == 0) {
 #pragma unroll
         for (int k = 0; k < SPT / 8; ++k) {
             const uint4 v = reinterpret_cast<const uint4*>(p)[k];
@@ -275,6 +279,13 @@ __device__ __forceinline__ HmRow<SPT> load_hm(const int16_t* p) {
             r.w[4 * k + 1] = v.y;
             r.w[4 * k + 2] = v.z;
             r.w[4 * k + 3] = v.w;
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < SPT / 4; ++k) {
+            const uint2 v = reinterpret_cast<const uint2*>(p)[k];
+            r.w[2 * k] = v.x;
+            r.w[2 * k + 1] = v.y;
         }
     }
     return r;
@@ -581,9 +592,10 @@ inline int launch_lanes(void (*kernel)(Args), const Args& a, int per_lane,
 
 }  // namespace
 
-// BW must be 32, 64, 128, 256, 512 or 1,024 (one instantiation per
-// slots-per-thread); any other band, or a lane whose shared memory does
-// not fit a block, returns cudaErrorInvalidValue without launching.
+// BW must be 32, 64 or a multiple of 128 up to 1,024 (one instantiation
+// per slots-per-thread: 1, 2, 4, 8, ..., 32); any other band, or a lane
+// whose shared memory does not fit a block, returns
+// cudaErrorInvalidValue without launching.
 extern "C" int banded_posterior_launch(
     const void* q, const void* q_len, const void* r, const void* r_len,
     const void* d0, int N, int Lq, int W, int BW, int match, int mismatch,
@@ -607,7 +619,11 @@ extern "C" int banded_posterior_launch(
         case 64: return launch_lanes(banded_posterior_kernel<2>, a, per_lane, s);
         case 128: return launch_lanes(banded_posterior_kernel<4>, a, per_lane, s);
         case 256: return launch_lanes(banded_posterior_kernel<8>, a, per_lane, s);
+        case 384: return launch_lanes(banded_posterior_kernel<12>, a, per_lane, s);
         case 512: return launch_lanes(banded_posterior_kernel<16>, a, per_lane, s);
+        case 640: return launch_lanes(banded_posterior_kernel<20>, a, per_lane, s);
+        case 768: return launch_lanes(banded_posterior_kernel<24>, a, per_lane, s);
+        case 896: return launch_lanes(banded_posterior_kernel<28>, a, per_lane, s);
         case 1024: return launch_lanes(banded_posterior_kernel<32>, a, per_lane, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }

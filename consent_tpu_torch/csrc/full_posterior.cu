@@ -56,13 +56,18 @@
 // it into a 32-bit mask that a loop over its set bits folds into the
 // lane's first and last matched rows in shared memory.
 //
-// Capped gaps, widths above 1,024 (up to MAX_W = 4,096) and gap scores
+// Capped gaps, widths above 1,024 (up to MAX_W = 16,384) and gap scores
 // outside the warp kernel's int16 range go to full_posterior_block_kernel
-// (the port's first design): one block per lane, each thread owning 1, 2
-// or 4 columns, the exact prefix max as a shuffle scan in each warp plus
-// the warp totals through shared memory, the diagonal through shared
-// memory (two __syncthreads per row), a capped window as a loop over it;
-// rows stop at q_len here too.  full_posterior_launch picks the kernel.
+// (the port's first design): one block per lane, each thread owning 1, 2,
+// 4, 8 or 16 columns (per-thread arrays; at 8 and 16 they spill to local
+// memory), the exact prefix max as a shuffle scan in each warp plus the
+// warp totals through shared memory, the diagonal through shared memory
+// (two __syncthreads per row), a capped window as a loop over it; rows
+// stop at q_len here too.  Its arithmetic is int32 wrapped to int16 after
+// every add, as the plain version's int16 tensors wrap: scores of a lane
+// thousands of columns wide pass 2^15 (2 per matched base, plus the
+// j * extend offset of the gap scan), and there the kernel must wrap
+// where the plain version does.  full_posterior_launch picks the kernel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -72,7 +77,7 @@ namespace {
 constexpr int NEG = -(1 << 14);
 constexpr int INS_PACK = 16;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_W = 4096;        // block kernel: 1,024 threads x 4 columns
+constexpr int MAX_W = 16384;       // block kernel: 1,024 threads x 16 columns
 constexpr int WARP_MAX_W = 1024;   // warp kernel: 32 threads x 32 columns
 constexpr int LANES_PER_BLOCK = 4;
 constexpr int SMEM_PER_BLOCK_MAX = 227 * 1024;
@@ -97,6 +102,12 @@ __device__ __forceinline__ int pack_ins(const uint8_t* qs, int i, int qlen,
             p += static_cast<uint32_t>(qs[min(idx, Lq - 1)]) << (2 * k);
     }
     return static_cast<int>(p);
+}
+
+// x as the plain version's int16 arithmetic leaves it: the low 16 bits,
+// sign-extended.
+__device__ __forceinline__ int w16(int x) {
+    return static_cast<int>(static_cast<int16_t>(x));
 }
 
 // The kernels' arguments.
@@ -496,7 +507,8 @@ __device__ __forceinline__ int block_suffix_max_excl(int x, int lane,
 
 // C columns per thread: thread t owns columns [t*C, t*C + C), and
 // columns at or past W (the block's padding up to a whole warp) hold
-// NEG in every scan and write nothing.
+// NEG in every scan and write nothing.  Every add and subtract is
+// wrapped to int16 (w16) where the plain version's int16 op wraps.
 template <int C>
 __global__ void __launch_bounds__(1024) full_posterior_block_kernel(
     const Args a) {
@@ -534,7 +546,7 @@ __global__ void __launch_bounds__(1024) full_posterior_block_kernel(
         live[c] = j < W;
         in_ref[c] = live[c] && j < rlen;
         rj[c] = live[c] ? a.r[static_cast<size_t>(n) * W + j] : 0;
-        jext[c] = j * gap_extend;
+        jext[c] = w16(j * gap_extend);
         if (live[c]) hs[j] = 0;
     }
     __syncthreads();
@@ -554,10 +566,10 @@ __global__ void __launch_bounds__(1024) full_posterior_block_kernel(
         for (int c = 0; c < C; ++c) {
             const int j = j0 + c;
             const int sub = in_ref[c] ? (qi == rj[c] ? match : mismatch) : NEG;
-            hm[c] = (live[c] && j >= 1 ? hs[j - 1] : 0) + sub;
-            fn[c] = max(h[c] - gap_open, f[c] - gap_extend);
+            hm[c] = w16((live[c] && j >= 1 ? hs[j - 1] : 0) + sub);
+            fn[c] = max(w16(h[c] - gap_open), w16(f[c] - gap_extend));
             ht[c] = max(max(hm[c], fn[c]), 0);
-            x[c] = live[c] ? ht[c] + jext[c] : NEG;
+            x[c] = live[c] ? w16(ht[c] + jext[c]) : NEG;
         }
         int pe[C];
         if (exact) {
@@ -586,7 +598,7 @@ __global__ void __launch_bounds__(1024) full_posterior_block_kernel(
         }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-            const int e = pe[c] - jext[c] - oe;
+            const int e = w16(w16(pe[c] - jext[c]) - oe);
             h[c] = max(ht[c], e);
             f[c] = fn[c];
             if (live[c]) {
@@ -629,9 +641,9 @@ __global__ void __launch_bounds__(1024) full_posterior_block_kernel(
             const int j = j0 + c;
             const int sub = in_ref[c] ? (qi == rj[c] ? match : mismatch) : NEG;
             bhd[c] = (j + 1 < W) ? hs[j + 1] : 0;          // BH[i+1][j+1]
-            bfn[c] = max(bh[c] - gap_open, bf[c] - gap_extend);
-            bt[c] = max(max(sub + bhd[c], bfn[c]), 0);
-            x[c] = live[c] ? bt[c] - jext[c] : NEG;
+            bfn[c] = max(w16(bh[c] - gap_open), w16(bf[c] - gap_extend));
+            bt[c] = max(max(w16(sub + bhd[c]), bfn[c]), 0);
+            x[c] = live[c] ? w16(bt[c] - jext[c]) : NEG;
         }
         int se[C];
         if (exact) {
@@ -660,12 +672,12 @@ __global__ void __launch_bounds__(1024) full_posterior_block_kernel(
         }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-            const int be = se[c] + jext[c] - oe;
+            const int be = w16(w16(se[c] + jext[c]) - oe);
             bh[c] = max(bt[c], be);
             bf[c] = bfn[c];
             if (!live[c]) continue;
             const int hm = hm_n[static_cast<size_t>(i) * S + j0 + c];
-            if (opt > 0 && hm > NEG / 2 && hm + bhd[c] == opt) {
+            if (opt > 0 && hm > NEG / 2 && w16(hm + bhd[c]) == opt) {
                 // descending i: i_first converges to the minimum, i_last
                 // and the captured bases keep the first (= largest) row
                 if (!m[c]) {
@@ -773,5 +785,7 @@ extern "C" int full_posterior_launch(
     }
     if (W <= 1024) return launch_block<1>(a, st);
     if (W <= 2048) return launch_block<2>(a, st);
-    return launch_block<4>(a, st);
+    if (W <= 4096) return launch_block<4>(a, st);
+    if (W <= 8192) return launch_block<8>(a, st);
+    return launch_block<16>(a, st);
 }

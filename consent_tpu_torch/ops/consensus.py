@@ -104,6 +104,22 @@ def _red16(x: torch.Tensor, B: int, S: int) -> torch.Tensor:
     ).to(I32)
 
 
+def _rep_rows(x: torch.Tensor, S: int) -> torch.Tensor:
+    """Each row of x repeated S times in place ([B, ...] -> [B*S, ...]),
+    as repeat_interleave(S, dim=0), by a broadcast copy."""
+    return x[:, None].expand(x.shape[0], S, *x.shape[1:]).reshape(
+        x.shape[0] * S, *x.shape[1:])
+
+
+def _leading_true(x: torch.Tensor) -> torch.Tensor:
+    """Per row of the last axis: how many entries from the start are
+    all True (the JAX package's cumprod(x).sum(-1)), as the index of
+    the first False, or the row's length when there is none.  int32."""
+    K = x.shape[-1]
+    idx = torch.arange(K, dtype=I32, device=x.device)
+    return torch.where(x, K, idx).amin(dim=-1).to(I32)
+
+
 def _argmax_first(x: torch.Tensor, dim: int) -> torch.Tensor:
     """argmax with ties broken toward the lowest index (jnp.argmax)."""
     n = x.shape[dim]
@@ -133,8 +149,8 @@ def consensus_votes(
 
     q = frags.reshape(B * S, Lf).contiguous()
     q_len = frag_len.reshape(B * S).to(I32).contiguous()
-    r = tpl.repeat_interleave(S, dim=0).contiguous()
-    r_len = tpl_len.to(I32).repeat_interleave(S).contiguous()
+    r = _rep_rows(tpl, S).contiguous()
+    r_len = _rep_rows(tpl_len.to(I32), S).contiguous()
     d0 = None if frag_d0 is None else frag_d0.reshape(B * S).to(I32).contiguous()
 
     summ = cuda_align.posterior_summary(q, q_len, r, r_len, scoring, d0=d0)
@@ -190,7 +206,7 @@ def consensus_votes(
     more = red(ins_count[:, :, None] > k)  # [B, W, K]
     stop = votes_bnd[:, :, None] - more
     extend = more > stop                                 # strict majority
-    ins_len = torch.cumprod(extend.to(I32), dim=2).sum(dim=2, dtype=I32)
+    ins_len = _leading_true(extend)
 
     ins_onehot = (ins_codes[:, :, :, None] == four) & ins_valid[:, :, :, None]
     ins_votes = red(ins_onehot)        # [B, W, K, 4]
@@ -221,7 +237,7 @@ def consensus_votes(
     run_len = rend - rbeg + 1
 
     def rep(x):
-        return x.repeat_interleave(S, dim=0)
+        return _rep_rows(x, S)
 
     # one forward scan carries both run-start values each fragment
     # needs — i_first[rbeg] and matched[rbeg], packed into one int32;
@@ -238,13 +254,9 @@ def consensus_votes(
 
     n_anch = red(anch_end)                               # [B, W]
     del_more = red((deficit[:, :, None] > k) & anch_end[:, :, None])
-    del_run = torch.cumprod(
-        (del_more > n_anch[:, :, None] - del_more).to(I32), dim=2
-    ).sum(dim=2, dtype=I32)
+    del_run = _leading_true(del_more > n_anch[:, :, None] - del_more)
     ins_more = red((-deficit[:, :, None] > k) & anch_end[:, :, None])
-    ins_run = torch.cumprod(
-        (ins_more > n_anch[:, :, None] - ins_more).to(I32), dim=2
-    ).sum(dim=2, dtype=I32)
+    ins_run = _leading_true(ins_more > n_anch[:, :, None] - ins_more)
     gate = (n_anch < min_column_support) | keep_tpl
     del_run = torch.where(gate, 0, torch.minimum(del_run, run_len - 1))
     ins_run = torch.where(gate, 0, ins_run)
@@ -323,7 +335,7 @@ def _edge_majority(valid, cnt, codes, ok, B, S):
     more = red((cnt[:, None] > kk).to(I32))                      # [B, K]
     stop = n_valid[:, None] - more
     extend = more > stop
-    length = torch.cumprod(extend.to(I32), dim=1).sum(dim=1, dtype=I32)
+    length = _leading_true(extend)
     four = torch.arange(4, device=dev)
     onehot = (codes[:, :, None] == four) & ok[:, :, None]
     votes = red(onehot.to(I32))                                  # [B, K, 4]

@@ -11,6 +11,10 @@ Each source is built with nvcc for sm_90a into build/ at first use
 (utils/build.py) and loaded with ctypes.  Kernels launch on PyTorch's
 current stream; the wrappers allocate outputs and the hm staging
 scratch with torch.empty and raise when the launch reports an error.
+They never synchronise or read a device value on the host, so a call
+can be captured into a CUDA graph (ops/graphs.py); a launch made while
+this thread captures is recorded (`recording`), not counted, and the
+graph adds its recorded launches to the counts on every replay.
 
 `posterior_summary` is the dispatcher the consensus and stitch paths
 call: a CPU tensor takes the plain PyTorch version (ops/align.py), a
@@ -20,12 +24,13 @@ kernel does not take raises.  It never falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import os
 import shutil
 import threading
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,17 +43,28 @@ KERNELS = {
     "banded_posterior": os.path.join(_CSRC, "banded_posterior.cu"),
     "full_posterior": os.path.join(_CSRC, "full_posterior.cu"),
 }
-# widest template the full-width kernel takes: 1,024 threads of up to 4
+# widest template the full-width kernel takes: 1,024 threads of up to 16
 # columns each (csrc/full_posterior.cu, MAX_W); with exact gaps up to
 # 1,024 columns it runs one warp per lane, otherwise one block per lane
-FULL_MAX_W = 4096
-# bands the banded kernel is instantiated for (1 to 32 slots per thread
-# of one warp; csrc/banded_posterior.cu)
-BANDS = (32, 64, 128, 256, 512, 1024)
+FULL_MAX_W = 16384
+# bands the banded kernel is instantiated for: 32, 64 and every multiple
+# of 128 up to 1,024 (1, 2, 4, 8, 12, ..., 32 slots per thread of one
+# warp; csrc/banded_posterior.cu)
+BANDS = (32, 64) + tuple(range(128, 1025, 128))
+# Most bytes of hm scratch one full-width launch may stage.  The scratch
+# is N x (Lq + 32) x round_up(W, 128) int16: 0.88 GB at the stitch's
+# widest main-path call (1,024 lanes of 640 x 640), which stays one
+# launch, but 36 MB a lane at 4,224 x 4,224 and 0.54 GB a lane at
+# 16,384 x 16,384.  Wider calls run in lane chunks of at most this much
+# scratch, one after another on the stream, so a call's scratch (and a
+# captured call's share of the graph pool) stays at 2 GiB whatever the
+# width, a fortieth of the card's 80 GB.
+HM_BUDGET_BYTES = 2 << 30
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
+_tls = threading.local()
 _libs: Dict[str, ctypes.CDLL] = {}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 # launches by lane count N, per kernel
@@ -111,11 +127,35 @@ def reset_launch_counts() -> None:
             _lane_hist[name].clear()
 
 
-def _count(name: str, lanes: int) -> None:
+@contextlib.contextmanager
+def recording() -> Iterator[List[Tuple[str, int]]]:
+    """Launches this thread makes inside the block go to the yielded
+    list as (kernel, lanes) and not to the counts: a graph capture
+    launches nothing, its replays do (add_launches)."""
+    rec: List[Tuple[str, int]] = []
+    prev = getattr(_tls, "record", None)
+    _tls.record = rec
+    try:
+        yield rec
+    finally:
+        _tls.record = prev
+
+
+def add_launches(launches: Sequence[Tuple[str, int]]) -> None:
+    """Count launches made by a replay of a captured graph."""
     with _lock:
-        _launches[name] += 1
-        hist = _lane_hist[name]
-        hist[lanes] = hist.get(lanes, 0) + 1
+        for name, lanes in launches:
+            _launches[name] += 1
+            hist = _lane_hist[name]
+            hist[lanes] = hist.get(lanes, 0) + 1
+
+
+def _count(name: str, lanes: int) -> None:
+    rec = getattr(_tls, "record", None)
+    if rec is not None:
+        rec.append((name, lanes))
+        return
+    add_launches([(name, lanes)])
 
 
 def scan_window(max_hgap: int, width: int) -> int:
@@ -152,8 +192,8 @@ def banded_posterior_summary(q, q_len, r, r_len, d0, sc: Scoring
                              ) -> PosteriorSummary:
     """Banded kernel (csrc/banded_posterior.cu) on CUDA tensors:
     q [N, Lq] uint8 (Lq >= 1), r [N, W] uint8, q_len/r_len/d0 [N] int32,
-    bases coded 0-3.  The band is 32 x 2^k up to min(W, 1024): one
-    warp per lane, band / 32 slots per thread."""
+    bases coded 0-3.  The band is one of BANDS, up to W: one warp per
+    lane, band / 32 slots per thread."""
     N, Lq = q.shape
     W = r.shape[1]
     BW = sc.band
@@ -200,12 +240,32 @@ def full_stage_slots(Lq: int) -> int:
     return Lq + 32
 
 
+def full_hm_lane_bytes(Lq: int, W: int) -> int:
+    """Bytes of the full-width kernel's hm scratch for one lane."""
+    return full_stage_slots(Lq) * full_stage_cols(W) * 2
+
+
+def full_lane_chunks(N: int, Lq: int, W: int) -> List[Tuple[int, int]]:
+    """The lane ranges [lo, hi) one full-width call launches, in order:
+    they cover [0, N) once, each with at most HM_BUDGET_BYTES of hm
+    scratch.  Raises when one lane alone exceeds the budget."""
+    per = full_hm_lane_bytes(Lq, W)
+    if per > HM_BUDGET_BYTES:
+        raise ValueError(
+            f"full-width kernel: one lane of {Lq} x {W} needs {per} bytes "
+            f"of hm scratch, above the {HM_BUDGET_BYTES}-byte limit "
+            f"(HM_BUDGET_BYTES)")
+    step = HM_BUDGET_BYTES // per
+    return [(lo, min(lo + step, N)) for lo in range(0, N, step)]
+
+
 def full_posterior_summary(q, q_len, r, r_len, sc: Scoring
                            ) -> PosteriorSummary:
     """Full-width kernel (csrc/full_posterior.cu) on CUDA tensors:
     q [N, Lq] uint8, r [N, W] uint8 (1 <= W <= FULL_MAX_W),
     q_len/r_len [N] int32.  One warp per lane up to 1,024 columns, one
-    block per lane above."""
+    block per lane above; lanes launch in chunks (full_lane_chunks)
+    that share one hm scratch, in order on the current stream."""
     N, Lq = q.shape
     W = r.shape[1]
     if not 1 <= W <= FULL_MAX_W:
@@ -220,18 +280,27 @@ def full_posterior_summary(q, q_len, r, r_len, sc: Scoring
     outs = _outputs(N, W, q.device)
     if N == 0:
         return PosteriorSummary(*outs)
-    hm = torch.empty((N, full_stage_slots(Lq), full_stage_cols(W)),
+    chunks = full_lane_chunks(N, Lq, W)
+    hm = torch.empty((max(hi - lo for lo, hi in chunks),
+                      full_stage_slots(Lq), full_stage_cols(W)),
                      dtype=torch.int16, device=q.device)
     fn = _lib("full_posterior").full_posterior_launch
+    window = scan_window(sc.max_hgap, W)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), q_len.data_ptr(), r.data_ptr(),
-                r_len.data_ptr(), N, Lq, W, sc.match, sc.mismatch,
-                sc.gap_open, sc.gap_extend, scan_window(sc.max_hgap, W),
-                *(t.data_ptr() for t in outs), hm.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"full_posterior launch failed: CUDA error {rc}")
-    _count("full_posterior", N)
+        for lo, hi in chunks:
+            # lane lo's row of every [N, ...] tensor
+            rc = fn(*(t.data_ptr() + lo * t.stride(0) * t.element_size()
+                      for t in (q, q_len, r, r_len)),
+                    hi - lo, Lq, W, sc.match, sc.mismatch, sc.gap_open,
+                    sc.gap_extend, window,
+                    *(t.data_ptr() + lo * t.stride(0) * t.element_size()
+                      for t in outs),
+                    hm.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"full_posterior launch failed: CUDA error {rc}")
+            _count("full_posterior", hi - lo)
     return PosteriorSummary(*outs)
 
 

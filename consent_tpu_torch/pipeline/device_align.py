@@ -3,11 +3,15 @@
 Pads ragged (query, ref) pair lists into fixed-shape buckets (lane
 count = power of two, lengths = multiples of 128), runs the posterior
 aligner (the full-width kernel on the card, its plain version on the
-CPU), and returns host AlignSpans.
+CPU), and returns host AlignSpans.  On the card each bucket shape
+(N, Lq, Lr) is captured as a CUDA graph at its first use and replayed
+after (ops/graphs.py), as the JAX package jits the call per static
+(Lq, Lr).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import numpy as np
@@ -15,6 +19,7 @@ import torch
 
 from consent_tpu_torch.ops import align as align_ops
 from consent_tpu_torch.ops import cuda_align
+from consent_tpu_torch.ops import graphs as graph_ops
 from consent_tpu_torch.ops.consensus import (
     _bitcast32, pack_bases_host, unpack_bases,
 )
@@ -84,15 +89,18 @@ class FixedAligner:
     Exposes the async protocol run_stitch uses to interleave job
     groups (dispatch returns as soon as the work is queued on the
     device; collect blocks on the fetch).  Tiny batches on the card
-    route to the native host aligner (same span contract)."""
+    route to the native host aligner (same span contract).  Calls on
+    the card replay captured graphs; graphs=False runs them op by op,
+    for comparison only."""
 
-    def __init__(self, cfg, device="cuda"):
+    def __init__(self, cfg, device="cuda", graphs=True):
         self.fixed_len = _round_up(
             max(cfg.window_size + 2 * cfg.window_overlap,
                 cfg.window_size + cfg.frag_slack),
             128,
         )
         self.device = resolve_device(device)
+        self.graphs = graphs and self.device.type == "cuda"
 
     def _native(self, qs, rs):
         if self.device.type == "cpu":
@@ -112,7 +120,8 @@ class FixedAligner:
             if spans is not None:
                 return ("done", spans)
         assert len(qs) <= MAX_LANES_PER_CALL
-        return ("dev", _dispatch_one(qs, rs, self.fixed_len, self.device))
+        return ("dev", _dispatch_one(qs, rs, self.fixed_len, self.device,
+                                     self.graphs))
 
     def collect(self, handle):
         kind, payload = handle
@@ -129,9 +138,9 @@ class FixedAligner:
         return out
 
 
-def _dispatch_one(qs, rs, fixed_len, device):
-    """Queue one batched span call on the device; returns
-    (device tensor, n) — _collect fetches it."""
+def _dispatch_one(qs, rs, fixed_len, device, graphs=False):
+    """Queue one batched span call on the device (a captured graph's
+    replay when `graphs`); returns (Pending, n) — _collect fetches it."""
     n = len(qs)
     lanes = _next_pow2(n)
     Lq = max(_round_up(max(len(q) for q in qs), 128), fixed_len)
@@ -148,13 +157,20 @@ def _dispatch_one(qs, rs, fixed_len, device):
         [pack_bases_host(q), pack_bases_host(r), ln.view(np.uint8)],
         axis=1,
     )
-    dev = _spans_wire_body(torch.from_numpy(buf).to(device), Lq=Lq, Lr=Lr)
-    return dev, n
+    fn = functools.partial(_spans_wire_body, Lq=Lq, Lr=Lr)
+    if device.type == "cpu":
+        pending = graph_ops.Pending(fn(torch.from_numpy(buf)))
+    elif graphs:
+        pending = graph_ops.captured(("stitch", lanes, Lq, Lr), fn,
+                                     buf.shape, device)(buf)
+    else:
+        pending = graph_ops.run_eager(fn, buf, device)
+    return pending, n
 
 
 def _collect(handle):
-    dev, n = handle
-    out = dev.cpu().numpy()
+    pending, n = handle
+    out = pending.result()
     return [
         AlignSpan(int(out[i, 0]), int(out[i, 1]), int(out[i, 2]),
                   int(out[i, 3]), bool(out[i, 4]))

@@ -13,14 +13,21 @@ emitted in input pile order.
 
 The engine runs on one explicit `device`: "cuda" (the default) runs
 the CUDA kernels and raises when there is no card; "cpu" runs the
-kernels' plain PyTorch versions.
+kernels' plain PyTorch versions.  On the card every consensus call is a
+replay of a CUDA graph captured once per call shape (ops/graphs.py),
+as the JAX package jits it once per static shape; `graphs=False` runs
+the calls op by op instead, for comparison only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+import sys
+import time
+from typing import (Dict, Iterable, Iterator, List, Optional, Sequence, Set,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -31,6 +38,7 @@ from consent_tpu_torch.core import postprocess, windows as win_mod
 from consent_tpu_torch.core.sparse_counts import SparseCounts
 from consent_tpu_torch.io.paf import Pile
 from consent_tpu_torch.ops import consensus as cons_ops
+from consent_tpu_torch.ops import graphs as graph_ops
 from consent_tpu_torch.ops import kmer as kmer_ops
 from consent_tpu_torch.ops.align import Scoring
 from consent_tpu_torch.pipeline import stitch as stitch_mod
@@ -64,9 +72,14 @@ def _bucket_for(n: int, cap: int) -> int:
 
 
 class ConsensusEngine:
-    """Batched window-consensus executor on one device."""
+    """Batched window-consensus executor on one device.
 
-    def __init__(self, cfg: ConsentConfig, device="cuda"):
+    On the card, every call shape `run` can dispatch (call_shapes) is
+    captured as a CUDA graph when the engine is built, before any chain
+    thread runs (a process captures each shape once); `graphs=False`
+    keeps the calls eager."""
+
+    def __init__(self, cfg: ConsentConfig, device="cuda", graphs=True):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.scoring = Scoring(
@@ -88,6 +101,54 @@ class ConsensusEngine:
                 "frag_devices > 1 are not supported yet"
             )
         self.max_lanes = cfg.device_lanes
+        self.rounds = max(1, cfg.consensus_rounds)
+        self.graphs = graphs and self.device.type == "cuda"
+        if self.graphs:
+            self._capture_all()
+
+    def call_shapes(self) -> Set[Tuple[int, int]]:
+        """The (fragment slots S, windows B) of every device call `run`
+        can make: each fragment bucket a window of 1 to max_msa + 1
+        fragments falls in, at its two batch sizes {tail_b, max_b}."""
+        shapes = set()
+        for n in range(1, self.cfg.max_msa + 2):
+            S = _bucket_for(n, self.s_cap)
+            max_b = self._max_b(S)
+            shapes.add((S, self._pad_b(1, max_b)))
+            shapes.add((S, max_b))
+        return shapes
+
+    def _wire_fn(self, S: int, rounds: int):
+        cfg = self.cfg
+        return functools.partial(
+            cons_ops.consensus_votes_wire, S=S, Pb=self.Lf // 4, Lt=self.Lt,
+            min_column_support=cfg.min_column_support, scoring=self.scoring,
+            rounds=rounds, assemble_out=True, warm_frac=cfg.warm_frac,
+        )
+
+    def _captured(self, S: int, B: int, rounds: int):
+        """The graph of one call shape; the key holds what
+        consensus_votes_wire's JAX counterpart takes as static."""
+        cfg = self.cfg
+        key = ("consensus", S, B, self.Lf // 4, self.Lt,
+               cfg.min_column_support, self.scoring, rounds, True,
+               cfg.warm_frac)
+        row = S * (self.Lf // 4) + 4 * S + self.Lt + 4 + 4 * S
+        return graph_ops.captured(key, self._wire_fn(S, rounds), (B, row),
+                                  self.device)
+
+    def _capture_all(self) -> None:
+        n0 = len(graph_ops.calls())
+        t0 = time.perf_counter()
+        shapes = sorted(self.call_shapes())
+        with STATS.timer("consensus.capture", len(shapes)):
+            for S, B in shapes:
+                self._captured(S, B, self.rounds)
+        new = len(graph_ops.calls()) - n0
+        if new:
+            print(f"[consent_tpu_torch] captured {new} consensus call "
+                  f"shapes of {len(shapes)} in "
+                  f"{time.perf_counter() - t0:.3f} s", file=sys.stderr)
 
     @staticmethod
     def _round128(x: int) -> int:
@@ -119,7 +180,7 @@ class ConsensusEngine:
             for lo in range(0, len(ts), max_b):
                 jobs.append((ts[lo : lo + max_b], S))
 
-        rounds = max(1, self.cfg.consensus_rounds)
+        rounds = self.rounds
         from consent_tpu_torch.utils.hostpool import host_pool
 
         # chains spend most of their time waiting on the device or on
@@ -191,25 +252,24 @@ class ConsensusEngine:
                 tpl, tpl_len)
 
     def _dispatch(self, S, frags, frag_len, frag_d0, tpl, tpl_len,
-                  rounds=1):
+                  rounds=1) -> graph_ops.Pending:
         """One wire-format consensus call with all refinement rounds
-        (one upload buffer in, one download buffer out); the result
-        stays on the device until _fetch_cons."""
-        cfg = self.cfg
+        (one upload buffer in, one download buffer out), enqueued: a
+        captured graph's replay on the card, the plain path on the CPU;
+        _fetch_cons waits for the result."""
         buf = cons_ops.wire_encode_inputs(
             frags, frag_len, tpl, tpl_len, frag_d0
         )
-        return cons_ops.consensus_votes_wire(
-            torch.from_numpy(buf).to(self.device), S=S,
-            Pb=frags.shape[-1], Lt=self.Lt,
-            min_column_support=cfg.min_column_support,
-            scoring=self.scoring, rounds=rounds, assemble_out=True,
-            warm_frac=cfg.warm_frac,
-        )
+        if self.graphs:
+            return self._captured(S, buf.shape[0], rounds)(buf)
+        fn = self._wire_fn(S, rounds)
+        if self.device.type == "cpu":
+            return graph_ops.Pending(fn(torch.from_numpy(buf)))
+        return graph_ops.run_eager(fn, buf, self.device)
 
-    def _fetch_cons(self, dev):
+    def _fetch_cons(self, pending: graph_ops.Pending):
         """-> list of per-window assembled consensus code arrays."""
-        return cons_ops.wire_decode_cons(dev.cpu().numpy(), self.Lt)
+        return cons_ops.wire_decode_cons(pending.result(), self.Lt)
 
     def _host_post(self, ts, S, cons_list):
         """Host post-processing: counts, anchor gate, weighting, DBG
@@ -356,17 +416,20 @@ def process_piles(
     batch_align=None,
     chunk_reads: int = 1024,
     device="cuda",
+    graphs: bool = True,
 ) -> Iterator[Tuple[str, np.ndarray, np.ndarray]]:
     """Full pipeline over a pile stream, on `device`.
 
     Yields (name, codes, solid) per input pile, in order; dropped
-    reads yield empty arrays (the caller skips empty output).
+    reads yield empty arrays (the caller skips empty output).  On the
+    card the device calls replay captured graphs; graphs=False runs
+    them op by op (for comparison only).
     """
-    engine = ConsensusEngine(cfg, device=device)
+    engine = ConsensusEngine(cfg, device=device, graphs=graphs)
     if batch_align is None:
         from consent_tpu_torch.pipeline.device_align import FixedAligner
 
-        batch_align = FixedAligner(cfg, device=engine.device)
+        batch_align = FixedAligner(cfg, device=engine.device, graphs=graphs)
 
     def geometry_stage(chunk: List[Pile]):
         """Chunk stage 0: window geometry (pure host), its own pipeline

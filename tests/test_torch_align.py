@@ -257,3 +257,84 @@ def test_lane_histogram_counts_launches_by_lane_count():
                                                "full_posterior": {}}
     finally:
         cuda_align.reset_launch_counts()
+
+
+@pytest.mark.parametrize("max_hgap", [0, 16])
+@pytest.mark.parametrize("band", [384, 640])
+def test_wide_bands_match_jax(band, max_hgap):
+    """Bands that are multiples of 128 but not powers of two (12 and 20
+    slots per thread of the banded kernel): the plain version at bands
+    384 and 640 equals the JAX package's aligner, templates as wide as
+    the band or wider."""
+    rng = np.random.default_rng(band + max_hgap)
+    Lq, Lr = 256, band + 128
+    qs, rs, d0s = near_diagonal(rng, Lq, Lr, n=4)
+    # a fragment far off the diagonal: only a wide band reaches it
+    ref = rng.integers(0, 4, Lr).astype(np.uint8)
+    qs.append(ref[band // 2 - 40: band // 2 + 160].copy())
+    rs.append(ref)
+    d0s.append(0)
+    q, ql, r, rl, d0 = arrays(qs, rs, d0s, Lq, Lr)
+    sc = j_align.Scoring(max_hgap=max_hgap, band=band)
+    want = j_align.posterior_summary(
+        jnp.asarray(q), jnp.asarray(ql), jnp.asarray(r), jnp.asarray(rl),
+        sc, d0=jnp.asarray(d0))
+    got = run_torch(q, ql, r, rl, d0, sc)
+    assert_equal(want, got)
+    assert got.matched[-1].sum() > 100
+
+
+def test_full_width_4224_matches_jax():
+    """The stitch's template at --windowSize 4,084 (4,224 columns, the
+    full-width kernel's one-block-per-lane path with 8 columns per
+    thread): the plain version equals the JAX package's aligner, with
+    fragments placed across the whole template."""
+    rng = np.random.default_rng(4224)
+    Lq, Lr = 1024, 4224
+    qs, rs = [], []
+    for d0 in (0, 1700, 3300):
+        ref = rng.integers(0, 4, Lr).astype(np.uint8)
+        frag = ref[d0: d0 + int(rng.integers(700, 900))].copy()
+        pos = rng.integers(0, len(frag), len(frag) // 10)
+        frag[pos] = (frag[pos] + 1 + rng.integers(0, 3, len(pos))) % 4
+        qs.append(np.delete(frag, rng.integers(0, len(frag), 20)))
+        rs.append(ref[: int(rng.integers(Lr - 140, Lr + 1))])
+    qs.append(np.empty(0, np.uint8))
+    rs.append(rng.integers(0, 4, 100).astype(np.uint8))
+    q, ql, r, rl, d0 = arrays(qs, rs, [0] * len(qs), Lq, Lr)
+    sc = j_align.Scoring(2, -2, 3, 1)
+    want = j_align.posterior_summary(
+        jnp.asarray(q), jnp.asarray(ql), jnp.asarray(r), jnp.asarray(rl), sc)
+    got = run_torch(q, ql, r, rl, d0, sc)
+    assert_equal(want, got)
+    assert got.matched[:3].any(dim=1).all()
+    assert int(t_align.summary_spans(got).r_end[2]) > 3300
+
+
+def test_full_lane_chunks_cover_lanes_within_the_budget():
+    """A full-width call launches its lanes in chunks that cover [0, N)
+    once, in order, each with at most HM_BUDGET_BYTES of hm scratch; the
+    main path's widest call (1,024 lanes of 640 x 640) stays one launch,
+    and one lane over the budget raises naming the limit."""
+    budget = cuda_align.HM_BUDGET_BYTES
+    assert cuda_align.full_lane_chunks(1024, 640, 640) == [(0, 1024)]
+    for N, Lq, W in ((1, 640, 640), (64, 4224, 4224), (1024, 4224, 4224),
+                     (64, 8192, 8192), (2, 16384, 16384), (5, 128, 16384),
+                     (0, 640, 640)):
+        chunks = cuda_align.full_lane_chunks(N, Lq, W)
+        covered = [n for lo, hi in chunks for n in range(lo, hi)]
+        assert covered == list(range(N))
+        for lo, hi in chunks:
+            assert hi > lo
+            assert (hi - lo) * cuda_align.full_hm_lane_bytes(Lq, W) <= budget
+        assert cuda_align.full_hm_lane_bytes(Lq, W) == (
+            (Lq + 32) * ((W + 127) // 128 * 128) * 2)
+    assert len(cuda_align.full_lane_chunks(64, 8192, 8192)) > 1
+    with pytest.raises(ValueError, match="HM_BUDGET_BYTES"):
+        cuda_align.full_lane_chunks(1, 70000, 16384)
+    assert cuda_align.FULL_MAX_W == 16384
+
+
+def test_bands_are_32_64_and_every_multiple_of_128_to_1024():
+    assert cuda_align.BANDS == (32, 64, 128, 256, 384, 512, 640, 768, 896,
+                                1024)
