@@ -21,10 +21,11 @@ consent_tpu).  Phases, each failing the run by raising:
      widths 768, 896, 1,000 and 1,024 (the one-warp-per-lane kernel's
      widest instantiations), and at 1,152 to 4,096 or with a gap cap of
      16 (the one-block-per-lane kernel).  Same checks.
-  4. repairs: the banded kernel at bands 384, 640, 768 and 896, and the
-     full-width kernel at W = 4,224 and 8,192 (64 lanes) and 16,384 (2
-     lanes, hm scratch in lane chunks), all six outputs equal to the
-     plain version's; kernel ms and lane-chunk counts.
+  4. repairs: the banded kernel at bands 384, 640, 768 and 896, and at
+     1,152 (W = 1,280, the tiled design), and the full-width kernel at
+     W = 4,224 and 8,192 (64 lanes), 16,384 and 16,512 (2 lanes, the
+     tiled design; hm scratch in lane chunks), all six outputs equal to
+     the plain version's; kernel ms and lane-chunk counts.
   5. graphs: every consensus call shape of correct_preset() (12, the
      deep 152-slot bucket's among them) and the stitch's span call at
      N = 16, 256 and 1,024 captured as CUDA graphs, the graph memory
@@ -54,10 +55,23 @@ consent_tpu).  Phases, each failing the run by raising:
      kb at 100x in 6 contigs of 25 kb), which must launch the banded
      kernel from the 152-slot fragment bucket and polish above the
      draft.
-  8. a detail JSON line, one JSON line of per-kernel results, the card
+  8. mesh (parallel/mesh.py), proven on shards of one card: (1)
+     sharded_consensus_step at the correct shape (B = 256, S = 16, 2
+     rounds, warm 0.25) over [cuda:0] x 4 at frag 1, 2 and 4, byte-equal
+     to the one-device call, and the frag-4 split and all-reduce timed;
+     (2, inside the main phase) the profiled 1,024-read chunk through
+     process_piles on [cuda:0] x 2 (data axis, captured calls), and on
+     every card when there are more, FASTA bytes equal to the one-device
+     run's; (3) the deep-pile cell on [cuda:0] x 4 at frag 4 and with
+     frag chosen automatically (device_lanes 128 < s_cap 152), bytes
+     equal to the one-device run's.  Each part's launch counters are set
+     to 0 just before it and read just after; wall, launches by lane
+     count and replays are printed.
+  9. a detail JSON line, one JSON line of per-kernel results, the card
      line, and the final {"ok": true, "device": ...} line.
 
-Usage: python3 chip_smoke.py [--only PHASE,...]  (no option: every phase)
+Usage: python3 chip_smoke.py [--only PHASE,...]  (no option: every phase;
+`--only mesh` runs parts 1 and 3, `--only main,mesh` adds part 2)
 """
 
 from __future__ import annotations
@@ -437,11 +451,13 @@ def phase_full_widths(rng):
 def phase_repairs(rng):
     """Shapes the port raised on before (ROADMAP Queue 3): the banded
     kernel at bands 384, 640, 768 and 896 (12 to 28 slots per thread;
-    q 512, template 640, or 1,024 where the band exceeds 640), and the
-    full-width kernel at W = 4,224 and 8,192 (64 lanes) and 16,384 (2
-    lanes), exact gaps, stitch scoring, one block per lane with 8 and 16
-    columns per thread, hm scratch in lane chunks.  All six outputs
-    equal to the plain version's (tolerance 0)."""
+    q 512, template 640, or 1,024 where the band exceeds 640) and at
+    band 1,152 (W = 1,280: the tiled design), and the full-width kernel
+    at W = 4,224 and 8,192 (64 lanes) and 16,384 (2 lanes), exact gaps,
+    stitch scoring, one block per lane with 8 and 16 columns per thread,
+    and at W = 16,512 (2 lanes: the tiled design), hm scratch in lane
+    chunks.  All six outputs equal to the plain version's (tolerance
+    0)."""
     from consent_tpu_torch.config import correct_preset
     from consent_tpu_torch.ops import cuda_align
     from consent_tpu_torch.ops.align import Scoring
@@ -451,22 +467,24 @@ def phase_repairs(rng):
     sc = Scoring(cfg.match_score, cfg.mismatch_score, cfg.gap_open,
                  cfg.gap_extend, cfg.consensus_max_hgap, cfg.consensus_band)
     bands = []
-    for band in (384, 640, 768, 896):
-        W = 640 if band <= 640 else 1024
+    for band in (384, 640, 768, 896, 1152):
+        W = 640 if band <= 640 else (1024 if band <= 1024 else 1280)
         q, q_len, r, r_len, d0 = near_diagonal_lanes(rng, 256, 512, W)
         tail = np.arange(512)[None, :] >= q_len[:, None]
         q[tail] = rng.integers(0, 4, int(tail.sum()))
         res = kernel_vs_plain("banded_posterior", q, q_len, r, r_len, d0,
                               sc._replace(band=band), reps=5)
-        log(f"[repair] banded N=256, band {band}, W={W}: equal; kernel "
-            f"{res['kernel_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
-            f"bound {res['bound_ms']:.3f} ms, matched "
+        variant = cuda_align.banded_variant(band, W)
+        log(f"[repair] banded N=256, band {band}, W={W} ({variant}): equal; "
+            f"kernel {res['kernel_ms']:.3f} ms, plain {res['plain_ms']:.3f} "
+            f"ms, bound {res['bound_ms']:.3f} ms, matched "
             f"{res['matched_frac']:.3f}")
-        bands.append({k: res[k] for k in ("N", "W", "band", "kernel_ms",
+        bands.append({"variant": variant, **{k: res[k] for k in (
+                                          "N", "W", "band", "kernel_ms",
                                           "plain_ms", "bound_ms", "bound_by",
-                                          "matched_frac")})
+                                          "matched_frac")}})
     widths = []
-    for N, W in ((64, 4224), (64, 8192), (2, 16384)):
+    for N, W in ((64, 4224), (64, 8192), (2, 16384), (2, 16512)):
         if N >= 6:
             q, q_len, r, r_len, d0 = full_lanes(rng, N, W)
         else:
@@ -482,11 +500,12 @@ def phase_repairs(rng):
         res = kernel_vs_plain("full_posterior", q, q_len, r, r_len, d0,
                               _SCORING, reps=2, plain_reps=0)
         chunks = len(cuda_align.full_lane_chunks(N, W, W))
-        log(f"[repair] full N={N}, W={W}: equal; kernel "
+        variant = cuda_align.full_variant(W, _SCORING)
+        log(f"[repair] full N={N}, W={W} ({variant}): equal; kernel "
             f"{res['kernel_ms']:.3f} ms in {chunks} lane chunk(s), plain "
             f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
             f"({res['bound_by']}), matched {res['matched_frac']:.3f}")
-        widths.append(dict(N=N, W=W, lane_chunks=chunks,
+        widths.append(dict(N=N, W=W, lane_chunks=chunks, variant=variant,
                            **{k: res[k] for k in ("kernel_ms", "plain_ms",
                                                   "bound_ms", "bound_by",
                                                   "matched_frac")}))
@@ -513,9 +532,10 @@ def poison_graph_memory(dev, byte=0xA5):
     return total
 
 
-def consensus_inputs(rng, eng, B, S):
-    """One seeded wire buffer of B windows x S slots: fragments walked
-    off each window's template at small offsets, ragged piles."""
+def consensus_arrays(rng, eng, B, S):
+    """Seeded inputs of one consensus call, B windows x S slots:
+    fragments walked off each window's template at small offsets,
+    ragged piles; (2-bit packed fragments, frag_len, tpl, tpl_len, d0)."""
     from consent_tpu_torch.ops import consensus as cons_ops
 
     cfg, Lf, Lt = eng.cfg, eng.Lf, eng.Lt
@@ -529,8 +549,14 @@ def consensus_inputs(rng, eng, B, S):
                            frag_len.reshape(-1), Lf).reshape(B, S, Lf)
     frags[:, 0] = tpl[:, :Lf]                             # template first
     frag_len[:, 0] = np.minimum(tpl_len, Lf)
-    return cons_ops.wire_encode_inputs(cons_ops.pack_bases_host(frags),
-                                       frag_len, tpl, tpl_len, d0)
+    return cons_ops.pack_bases_host(frags), frag_len, tpl, tpl_len, d0
+
+
+def consensus_inputs(rng, eng, B, S):
+    """One seeded wire buffer of B windows x S slots (consensus_arrays)."""
+    from consent_tpu_torch.ops import consensus as cons_ops
+
+    return cons_ops.wire_encode_inputs(*consensus_arrays(rng, eng, B, S))
 
 
 def stitch_inputs(rng, N, L):
@@ -715,7 +741,7 @@ def score_pool(pairs):
     return out
 
 
-def phase_main(genome, reads, reads_fa, workdir):
+def phase_main(genome, reads, reads_fa, workdir, mesh=False):
     from consent_tpu_torch import cli
     from consent_tpu_torch.io import seqs
     from consent_tpu_torch.io.fasta import iter_fastx
@@ -802,9 +828,12 @@ def phase_main(genome, reads, reads_fa, workdir):
         index.add(rd.name, rd.codes)
     chunk_cfg = correct_preset(n_workers=os.cpu_count())
     profile = phase_profile("main", piles[:1024], index, chunk_cfg)
-    chunk_turns = eager_vs_graph(piles[:1024], index, chunk_cfg)
+    chunk_turns, chunk_out = eager_vs_graph(piles[:1024], index, chunk_cfg)
+    mesh_res = (mesh_chunk(piles[:1024], index, chunk_cfg, chunk_out)
+                if mesh else None)
     return dict(
         profile=profile, chunk_turns=chunk_turns, graphs=graphs,
+        mesh_chunk=mesh_res,
         stage_thread_s=stage_s,
         genome_len=len(genome), n_reads=len(reads), n_out=len(results),
         n_windows=n_windows, overlap_wall_s=overlap_s,
@@ -865,7 +894,7 @@ def eager_vs_graph(piles, index, cfg):
                  for a, b in zip(first, out)) or len(first) != len(out):
             raise AssertionError(f"[main] {mode} turn: output differs from "
                                  f"the first turn's")
-    return turns
+    return turns, first
 
 
 def run_polish(tag, contigs_fa, reads_fa, out_fa, extra=()):
@@ -1052,25 +1081,236 @@ def phase_polish(genome, reads_fa, workdir):
     return res
 
 
-def phase_polish_deep(workdir):
-    """Deep piles: 100x reads over contigs of 25 kb fill the 152-slot
-    fragment bucket; the banded kernel must launch from it and the
-    polished contigs must beat the draft."""
+def deep_inputs(workdir):
+    """The deep-pile cell's data: (truth, draft, draft FASTA, reads
+    FASTA)."""
     genome, _, reads_fa = simulate_reads(workdir, "deep", **DEEP)
     truth, draft = cut_contigs(genome, DEEP_CONTIGS,
                                len(genome) // DEEP_CONTIGS,
                                np.random.default_rng(3), POLISH_DRAFT_ERR)
     asm_fa = os.path.join(workdir, "deep_draft.fasta")
     write_fasta(asm_fa, draft.items())
+    return truth, draft, asm_fa, reads_fa
+
+
+def phase_polish_deep(workdir, deep):
+    """Deep piles: 100x reads over contigs of 25 kb fill the 152-slot
+    fragment bucket; the banded kernel must launch from it and the
+    polished contigs must beat the draft."""
+    truth, draft, asm_fa, reads_fa = deep
     out_fa = os.path.join(workdir, "deep_polished.fasta")
     res = run_polish("deep", asm_fa, reads_fa, out_fa)
     hist = res["lane_histogram"]["banded_posterior"]
-    deep = {n: hist.get(n, 0) for n in DEEP_LANES}
-    if not sum(deep.values()):
+    deep_n = {n: hist.get(n, 0) for n in DEEP_LANES}
+    if not sum(deep_n.values()):
         raise AssertionError(f"[deep] no banded launch from the 152-slot "
                              f"bucket: {hist}")
     res.update(score_polish("deep", out_fa, truth, draft))
     return res
+
+
+# ---------------------------------------------------------------- mesh
+#
+# The mesh is proven on shards of one card: a device list may repeat a
+# device (parallel/mesh.py), as the JAX package's tests run on virtual
+# host devices.  With more than one card, part 2 also runs on all.
+
+MESH_SHARDS = 4
+
+
+def fasta_bytes(records):
+    """The FASTA the CLI writes for (name, codes, solid) records."""
+    from consent_tpu_torch.io import seqs
+
+    return "".join(f">{n}\n{seqs.decode(c, s)}\n"
+                   for n, c, s in records if len(c)).encode()
+
+
+def mesh_run(tag, fn, need):
+    """fn() with the launch counters set to 0 just before and read just
+    after: (result, wall s, launches by lane count, graph replays);
+    every kernel in `need` must have launched."""
+    import torch
+
+    from consent_tpu_torch.ops import cuda_align
+    from consent_tpu_torch.ops import graphs as graph_ops
+
+    before = graph_ops.stats()["by_kind"]
+    cuda_align.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hist = cuda_align.lane_histogram()
+    replays = {k: v["replays"] for k, v in graph_delta(before).items()}
+    for name in need:
+        if not hist[name]:
+            raise AssertionError(f"[mesh] {tag}: kernel {name} never "
+                                 f"launched")
+    log(f"[mesh] {tag}: {wall:.3f} s, launches by lane count {hist}, "
+        f"replays {replays}")
+    return out, wall, hist, replays
+
+
+def phase_mesh(rng, shards=None):
+    """Mesh part 1: sharded_consensus_step at the correct shape (B =
+    256 windows, S = 16 slots, 2 rounds, warm 0.25, banded aligner,
+    packed fragments, assembled output) over `shards` (default [cuda:0]
+    x 4) at frag 1, 2 and len(shards), each byte-equal to the one-device
+    call on the first shard's card; then, at the widest frag axis, the
+    split (put_batch) and the sum of the shards' partials timed."""
+    import torch
+
+    from consent_tpu_torch.config import correct_preset
+    from consent_tpu_torch.ops import consensus as cons_ops
+    from consent_tpu_torch.ops import graphs as graph_ops
+    from consent_tpu_torch.parallel import mesh as mesh_mod
+    from consent_tpu_torch.pipeline.engine import ConsensusEngine
+
+    shards = shards or [torch.device("cuda", 0)] * MESH_SHARDS
+    dev, nf_max = shards[0], len(shards)
+    cfg = correct_preset()
+    eng = ConsensusEngine(cfg, device=dev, graphs=False)
+    B, S = 256, 16
+    arrays = consensus_arrays(rng, eng, B, S)
+    want = graph_ops.run_eager(eng._wire_fn(S, eng.rounds),
+                               cons_ops.wire_encode_inputs(*arrays),
+                               dev).result()
+    pk, frag_len, tpl, tpl_len, d0 = arrays
+    out = dict(B=B, S=S, rounds=eng.rounds, by_frag={})
+    for nf in sorted({1, 2, nf_max}):
+        mesh = mesh_mod.make_mesh(shards, frag_axis=nf)
+
+        def step():
+            cons, lens = mesh_mod.sharded_consensus_step(
+                mesh, pk, frag_len, tpl, tpl_len, S=S,
+                min_column_support=cfg.min_column_support,
+                scoring=eng.scoring, frag_d0=d0, packed=True,
+                frags_packed=True, rounds=eng.rounds, assemble_out=True,
+                warm_frac=cfg.warm_frac)
+            return torch.cat([cons, cons_ops._bytes32(lens[:, None])], 1)
+
+        step()                                            # warm-up
+        got, wall, hist, _ = mesh_run(
+            f"part 1: sharded_consensus_step, mesh {mesh.shape}", step,
+            ["banded_posterior"])
+        if not np.array_equal(got.numpy(), want):
+            raise AssertionError(f"[mesh] frag {nf}: sharded consensus "
+                                 f"differs from the one-device call")
+        out["by_frag"][nf] = dict(mesh=mesh.shape, wall_ms=wall * 1e3,
+                                  launches=hist["banded_posterior"])
+
+    # the widest frag axis's split and all-reduce alone
+    mesh = mesh_mod.make_mesh(shards, frag_axis=nf_max)
+    specs = [("data", "frag", None), ("data", "frag"), ("data", None),
+             ("data",), ("data", "frag")]
+    with mesh_mod.work_streams(shards):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row = mesh_mod.put_batch(mesh, arrays, specs)[0]
+        for d in mesh.distinct():
+            torch.cuda.synchronize(d)
+        split_ms = (time.perf_counter() - t0) * 1e3
+        parts = [cons_ops.consensus_partials(
+            cons_ops.unpack_bases(fr, fr.shape[-1] * 4), fl, tp, tl,
+            S=S // nf_max, scoring=eng.scoring, frag_d0=d)
+            for fr, fl, tp, tl, d in row]
+
+        def allreduce():
+            total = cons_ops.sum_partials(parts)
+            return [[x.to(sh, non_blocking=True) for x in total]
+                    for sh in shards]
+
+        sum_ms = cuda_ms(allreduce, 20)
+    part_bytes = sum(x.nbytes for x in parts[0])
+    log(f"[mesh] part 1: frag {nf_max} split {split_ms:.3f} ms, "
+        f"all-reduce of {nf_max} x {part_bytes} bytes of partials "
+        f"{sum_ms:.3f} ms on {len(mesh.distinct())} card(s)")
+    out.update(split_ms=split_ms, allreduce_ms=sum_ms,
+               partial_bytes=part_bytes)
+    return out
+
+
+def mesh_chunk(piles, index, cfg, want_records):
+    """Mesh part 2: the correct workload's profiled 1,024-read chunk
+    through process_piles on [cuda:0] x 2 (data axis, captured calls),
+    and on every card when there are more than one: the FASTA bytes
+    equal the one-device run's."""
+    import torch
+
+    from consent_tpu_torch.pipeline import engine
+
+    want = fasta_bytes(want_records)
+    runs = [("[cuda:0] x 2", [torch.device("cuda", 0)] * 2)]
+    n = torch.cuda.device_count()
+    if n > 1:
+        runs.append((f"cuda:0..{n - 1}",
+                     [torch.device("cuda", i) for i in range(n)]))
+    out = {}
+    for tag, devs in runs:
+        recs, wall, hist, replays = mesh_run(
+            f"part 2: chunk of {len(piles)} piles on {tag}",
+            lambda: list(engine.process_piles(iter(piles), index, cfg,
+                                              devices=devs)),
+            ["banded_posterior", "full_posterior"])
+        if fasta_bytes(recs) != want:
+            raise AssertionError(f"[mesh] chunk on {tag}: FASTA differs "
+                                 f"from the one-device run")
+        out[tag] = dict(wall_s=wall, launches=hist, replays=replays,
+                        bytes=len(want))
+    return out
+
+
+def mesh_deep(deep, shards=None):
+    """Mesh part 3: the deep-pile cell through process_piles on
+    `shards` (default [cuda:0] x 4) with every shard on the frag axis,
+    set and chosen automatically (device_lanes 128 < s_cap 152): the
+    FASTA bytes equal the one-device run's."""
+    import dataclasses
+
+    import torch
+
+    from consent_tpu_torch.config import polish_preset
+    from consent_tpu_torch.io.fasta import ReadIndex
+    from consent_tpu_torch.overlap import minimizer as mz
+    from consent_tpu_torch.pipeline import engine
+
+    _, draft, _, reads_fa = deep
+    cfg = polish_preset(n_workers=os.cpu_count())
+    index = ReadIndex()
+    for name, codes in draft.items():
+        index.add(name, codes)
+    reads = ReadIndex.from_file(reads_fa)
+    read_list = [(n, reads[n]) for n in reads.names()]
+    for name, codes in read_list:
+        index.add(name, codes)
+    piles = list(mz.map_to_targets_piles(list(draft.items()), read_list,
+                                         mz.OverlapParams(), cfg.max_support))
+    shards = shards or [torch.device("cuda", 0)] * MESH_SHARDS
+    card = shards[:1]
+    one, wall1, _, _ = mesh_run(
+        "part 3: deep cell on one card",
+        lambda: list(engine.process_piles(iter(piles), index, cfg,
+                                          devices=card)),
+        ["banded_posterior"])
+    want = fasta_bytes(one)
+    devs, nf = shards, len(shards)
+    out = dict(one_card_wall_s=wall1, bytes=len(want))
+    for tag, c in ((f"frag {nf}", dataclasses.replace(cfg, frag_devices=nf)),
+                   ("frag auto", dataclasses.replace(cfg, device_lanes=128))):
+        eng = engine.ConsensusEngine(c, devices=devs, graphs=False)
+        if eng.mesh.shape != (1, nf):
+            raise AssertionError(f"[mesh] deep {tag}: mesh {eng.mesh.shape}")
+        recs, wall, hist, replays = mesh_run(
+            f"part 3: deep cell, {tag}, mesh {eng.mesh.shape}",
+            lambda: list(engine.process_piles(iter(piles), index, c,
+                                              devices=devs)),
+            ["banded_posterior"])
+        if fasta_bytes(recs) != want:
+            raise AssertionError(f"[mesh] deep {tag}: FASTA differs from "
+                                 f"the one-device run")
+        out[tag] = dict(wall_s=wall, launches=hist, replays=replays)
+    return out
 
 
 def phase_profile(tag, piles, index, cfg):
@@ -1115,7 +1355,7 @@ def phase_profile(tag, piles, index, cfg):
 
 
 PHASES = ("banded", "full", "repairs", "graphs", "consensus",
-          "card_vs_cpu", "main", "polish")
+          "card_vs_cpu", "main", "polish", "mesh")
 
 
 def main(argv=None) -> int:
@@ -1147,17 +1387,25 @@ def main(argv=None) -> int:
         res["consensus_call"] = phase_consensus_call(rng)
     if "card_vs_cpu" in only:
         phase_card_vs_cpu()
-    if only & {"main", "polish"}:
+    if only & {"main", "polish", "mesh"}:
         with tempfile.TemporaryDirectory() as workdir:
-            genome, reads, reads_fa = simulate_reads(
-                workdir, "main", genome_len=GENOME_LEN, **E2E)
-            if "main" in only:
-                res["main"] = phase_main(genome, reads, reads_fa, workdir)
-            del reads
+            if only & {"main", "polish"}:
+                genome, reads, reads_fa = simulate_reads(
+                    workdir, "main", genome_len=GENOME_LEN, **E2E)
+                if "main" in only:
+                    res["main"] = phase_main(genome, reads, reads_fa,
+                                             workdir, mesh="mesh" in only)
+                del reads
+                if "polish" in only:
+                    phase_polish_card_vs_cpu(workdir)
+                    res["polish"] = phase_polish(genome, reads_fa, workdir)
+            deep = (deep_inputs(workdir) if only & {"polish", "mesh"}
+                    else None)
             if "polish" in only:
-                phase_polish_card_vs_cpu(workdir)
-                res["polish"] = phase_polish(genome, reads_fa, workdir)
-                res["polish_deep"] = phase_polish_deep(workdir)
+                res["polish_deep"] = phase_polish_deep(workdir, deep)
+            if "mesh" in only:
+                res["mesh"] = phase_mesh(rng)
+                res["mesh"]["deep"] = mesh_deep(deep)
     if only != set(PHASES):
         print(json.dumps(dict(card=card, build_s=build_s, **res),
                          default=str))
@@ -1177,6 +1425,8 @@ def main(argv=None) -> int:
             launches=main_res["launches"][r["name"]],
             launches_polish=polish_res["launches"][r["name"]],
             launches_polish_deep=deep_res["launches"][r["name"]],
+            launches_mesh_chunk=sum(main_res["mesh_chunk"]["[cuda:0] x 2"][
+                "launches"][r["name"]].values()),
             max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
             kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -1201,7 +1451,8 @@ def main(argv=None) -> int:
                   full_widths=res["full_widths"], repairs=res["repairs"],
                   graphs=res["graphs"],
                   consensus_call=res["consensus_call"],
-                  main=main_res, polish=polish_res, polish_deep=deep_res)
+                  main=main_res, polish=polish_res, polish_deep=deep_res,
+                  mesh=res["mesh"])
     print(json.dumps(detail, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

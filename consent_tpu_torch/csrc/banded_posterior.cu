@@ -72,6 +72,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "posterior_tiled.cuh"
+
 namespace {
 
 constexpr int NEG = -(1 << 14);
@@ -595,7 +597,8 @@ inline int launch_lanes(void (*kernel)(Args), const Args& a, int per_lane,
 // BW must be 32, 64 or a multiple of 128 up to 1,024 (one instantiation
 // per slots-per-thread: 1, 2, 4, 8, ..., 32); any other band, or a lane
 // whose shared memory does not fit a block, returns
-// cudaErrorInvalidValue without launching.
+// cudaErrorInvalidValue without launching.  Wider bands go to
+// banded_posterior_tiled_launch (ops/cuda_align.py: banded_variant).
 extern "C" int banded_posterior_launch(
     const void* q, const void* q_len, const void* r, const void* r_len,
     const void* d0, int N, int Lq, int W, int BW, int match, int mismatch,
@@ -627,4 +630,20 @@ extern "C" int banded_posterior_launch(
         case 1024: return launch_lanes(banded_posterior_kernel<32>, a, per_lane, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
+}
+
+// Bands above 1,024 (any multiple of 128 up to W): one block per lane,
+// the DP rows in global scratch (posterior_tiled.cuh; hm_stage holds
+// N x Lq x W int16, rows N x 4 x W int32).
+extern "C" int banded_posterior_tiled_launch(
+    const void* q, const void* q_len, const void* r, const void* r_len,
+    const void* d0, int N, int Lq, int W, int BW, int match, int mismatch,
+    int gap_open, int gap_extend, int window, int capped, void* opt,
+    void* matched, void* i_first, void* i_last, void* base, void* ins_pack,
+    void* hm_stage, void* rows, void* stream) {
+    if (BW < 1) return static_cast<int>(cudaErrorInvalidValue);
+    return tiled::launch_c(q, q_len, r, r_len, d0, N, Lq, W, BW, match,
+                           mismatch, gap_open, gap_extend, window, capped,
+                           opt, matched, i_first, i_last, base, ins_pack,
+                           hm_stage, rows, stream);
 }

@@ -68,9 +68,15 @@
 // thousands of columns wide pass 2^15 (2 per matched base, plus the
 // j * extend offset of the gap scan), and there the kernel must wrap
 // where the plain version does.  full_posterior_launch picks the kernel.
+//
+// Templates wider than MAX_W go to full_posterior_tiled_launch: one
+// block per lane with the DP rows in global scratch, walked in column
+// tiles (posterior_tiled.cuh).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "posterior_tiled.cuh"
 
 namespace {
 
@@ -788,4 +794,20 @@ extern "C" int full_posterior_launch(
     if (W <= 4096) return launch_block<4>(a, st);
     if (W <= 8192) return launch_block<8>(a, st);
     return launch_block<16>(a, st);
+}
+
+// Templates wider than MAX_W (any width): one block per lane, the DP
+// rows in global scratch (posterior_tiled.cuh; hm_stage holds
+// N x Lq x W int16, rows N x 4 x W int32).  band must be 0.
+extern "C" int full_posterior_tiled_launch(
+    const void* q, const void* q_len, const void* r, const void* r_len,
+    const void* d0, int N, int Lq, int W, int band, int match, int mismatch,
+    int gap_open, int gap_extend, int window, int capped, void* opt,
+    void* matched, void* i_first, void* i_last, void* base, void* ins_pack,
+    void* hm_stage, void* rows, void* stream) {
+    if (band != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return tiled::launch_c(q, q_len, r, r_len, d0, N, Lq, W, 0, match,
+                           mismatch, gap_open, gap_extend, window, capped,
+                           opt, matched, i_first, i_last, base, ins_pack,
+                           hm_stage, rows, stream);
 }

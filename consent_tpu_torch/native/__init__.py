@@ -42,9 +42,13 @@ def get_lib() -> ctypes.CDLL:
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
 
         lib.encode_seq.argtypes = [ctypes.c_char_p, ctypes.c_int64, u8p]
         lib.revcomp.argtypes = [u8p, ctypes.c_int64, u8p]
+        lib.count_kmers.argtypes = [
+            u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int, i32p
+        ]
         lib.count_kmers_touched.argtypes = [
             u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int, i32p, i64p
         ]
@@ -78,6 +82,12 @@ def get_lib() -> ctypes.CDLL:
             i32p,
         ]
         lib.host_post_batch.restype = ctypes.c_int64
+        lib.assemble_windows.argtypes = [
+            i8p, i8p, u8p, i32p, i32p, i32p, i32p, i32p,
+            i32p, ctypes.c_int64, ctypes.c_int64,
+            u8p, ctypes.c_int64, i64p,
+        ]
+        lib.assemble_windows.restype = ctypes.c_int64
         lib.local_align_span.argtypes = [
             u8p, ctypes.c_int64, u8p, ctypes.c_int64,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, i64p,
@@ -156,6 +166,21 @@ def count_anchors_native(frag_list, k, support):
     ) if lens.sum() else np.zeros(1, np.uint8)
     return int(lib.count_anchors(blob, lens, offsets, len(frag_list), k,
                                  support))
+
+
+def count_kmers_native(frag_list, k):
+    """Native dense k-mer counting: [4^k] int32 counts."""
+    lib = get_lib()
+    if not frag_list:
+        return np.zeros(4 ** k, dtype=np.int32)
+    lens = np.array([len(f) for f in frag_list], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    blob = np.concatenate(
+        [np.ascontiguousarray(f, dtype=np.uint8) for f in frag_list]
+    ) if lens.sum() else np.zeros(1, np.uint8)
+    counts = np.zeros(4 ** k, dtype=np.int32)
+    lib.count_kmers(blob, lens, offsets, len(frag_list), k, counts)
+    return counts
 
 
 def count_kmers_sparse_native(frag_list, k):
@@ -296,6 +321,33 @@ def host_post_batch_native(frag_lists, cons_list, bmean_sups, k,
             )
         )
     return res
+
+
+def assemble_windows_native(col_base, col_del, ins_len, ins_pack,
+                            pre_len, pre_pack, suf_len, suf_pack,
+                            w_lens):
+    """Batch consensus assembly (assemble_consensus_batch fast path);
+    returns a list of uint8 arrays, or None when its output capacity
+    check fails."""
+    lib = get_lib()
+    cb = np.ascontiguousarray(col_base, dtype=np.int8)
+    B, W = cb.shape
+    cd = np.ascontiguousarray(col_del, dtype=np.int8)
+    il = np.ascontiguousarray(ins_len, dtype=np.uint8)
+    ip = np.ascontiguousarray(ins_pack, dtype=np.int32)
+    wl = np.ascontiguousarray(w_lens, dtype=np.int32)
+    pl = np.ascontiguousarray(pre_len, dtype=np.int32)
+    pp = np.ascontiguousarray(pre_pack, dtype=np.int32)
+    sl = np.ascontiguousarray(suf_len, dtype=np.int32)
+    sp = np.ascontiguousarray(suf_pack, dtype=np.int32)
+    cap = int((np.minimum(wl, W) * 17).sum() + 32 * B + 64)
+    out = np.empty(cap, dtype=np.uint8)
+    offs = np.empty(B + 1, dtype=np.int64)
+    n = lib.assemble_windows(cb, cd, il, ip, pl, pp, sl, sp, wl,
+                             B, W, out, cap, offs)
+    if n < 0:
+        return None
+    return [out[offs[b] : offs[b + 1]] for b in range(B)]
 
 
 _EMPTY_I64 = np.zeros(1, dtype=np.int64)

@@ -17,13 +17,13 @@ the template base.
 
 All tensors are fixed-shape [B windows, S fragment slots, ...]; ragged
 piles are padded with zero-length fragments that vote for nothing.
-Byte layouts and results are bit-equal to consent_tpu.ops.consensus.
+Byte layouts and results are bit-equal to consent_tpu_torch.ops.consensus.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -95,13 +95,14 @@ def _nearest_valid_right(vals: torch.Tensor, valid: torch.Tensor
     return after
 
 
-def _red16(x: torch.Tensor, B: int, S: int) -> torch.Tensor:
-    """Sum over fragment slots: [B*S, ...] -> [B, ...] int32.  Counts
-    fit int16 (bounded by the slot cap max_msa + 1 < 30000), so the
-    accumulator is int16 as in the JAX package."""
+def _sum16(x: torch.Tensor, B: int, S: int) -> torch.Tensor:
+    """Sum over fragment slots: [B*S, ...] -> [B, ...] int16.  Counts
+    fit int16 (bounded by the slot cap max_msa + 1 < 30000, summed over
+    every frag shard too), so the accumulator is int16 as in the JAX
+    package."""
     return x.to(torch.int16).reshape(B, S, *x.shape[1:]).sum(
         dim=1, dtype=torch.int16
-    ).to(I32)
+    )
 
 
 def _rep_rows(x: torch.Tensor, S: int) -> torch.Tensor:
@@ -130,18 +131,65 @@ def _argmax_first(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(x == best, idx, n).amin(dim=dim)
 
 
-def consensus_votes(
+class VotePartials(NamedTuple):
+    """Phase A of a consensus call: every per-window sum over fragment
+    slots that consensus_votes reduces, taken before any reduced value
+    is used, so the sums of several slot shards add up to the sums of
+    all their slots.  int16 where the JAX package sums in int16 (its
+    `red`), int32 at the window edges (its `_edge_majority`)."""
+
+    votes_base: torch.Tensor  # [B, W, 4] int16: matched fragments per base
+    votes_del: torch.Tensor   # [B, W] int16: covering, unmatched
+    coverage: torch.Tensor    # [B, W] int16: covering
+    n_matched: torch.Tensor   # [B, W] int16: matched
+    votes_bnd: torch.Tensor   # [B, W] int16: matched with a match after
+    more: torch.Tensor        # [B, W, K] int16: insertions longer than k
+    ins_votes: torch.Tensor   # [B, W, K, 4] int16: inserted base k
+    n_anch: torch.Tensor      # [B, W] int16: anchored at a run's end
+    del_more: torch.Tensor    # [B, W, K] int16: run deficit above k
+    ins_more: torch.Tensor    # [B, W, K] int16: run surplus above k
+    pre_valid: torch.Tensor   # [B] int32: matched at column 0
+    pre_more: torch.Tensor    # [B, K] int32: leading bases beyond k
+    pre_votes: torch.Tensor   # [B, K, 4] int32: leading base k
+    suf_valid: torch.Tensor   # [B] int32: matched at the last column
+    suf_more: torch.Tensor    # [B, K] int32
+    suf_votes: torch.Tensor   # [B, K, 4] int32
+
+
+_SENT = -(1 << 20)
+
+
+def _runs(tpl: torch.Tensor, tpl_len: torch.Tensor):
+    """Runs of equal template bases: per column its index, whether it
+    lies below the template length, whether a run starts / ends there,
+    and its run's first and last column."""
+    B, W = tpl.shape
+    tpl32 = tpl.to(I32)
+    colw = torch.arange(W, dtype=I32, device=tpl.device)[None, :].expand(B, W)
+    tl = tpl_len.to(I32)[:, None]
+    valid_col = colw < tl
+    prev_tpl = torch.full_like(tpl32, -1)
+    prev_tpl[:, 1:] = tpl32[:, :-1]
+    is_start_w = (colw == 0) | (tpl32 != prev_tpl) | ~valid_col | (colw == tl)
+    is_end_w = torch.ones_like(is_start_w)
+    is_end_w[:, :-1] = is_start_w[:, 1:]
+    rbeg = _propagate_forward(colw, is_start_w, _SENT)
+    rend = _propagate_backward(colw, is_end_w, _SENT)
+    return colw, valid_col, is_start_w, is_end_w, rbeg, rend
+
+
+def consensus_partials(
     frags: torch.Tensor,      # [B, S, Lf] uint8 codes
     frag_len: torch.Tensor,   # [B, S] int32 (0 = empty slot)
     tpl: torch.Tensor,        # [B, W] uint8
     tpl_len: torch.Tensor,    # [B] int32 (== W normally)
     *,
     S: int,
-    min_column_support: int = 2,
     scoring: align_ops.Scoring = align_ops.Scoring(),
     frag_d0: torch.Tensor | None = None,  # [B, S] expected start column
-) -> WindowVotes:
-    """Batched realign-vote consensus."""
+) -> VotePartials:
+    """Phase A: the aligner over every slot, and each per-fragment
+    quantity summed over the slots.  An empty slot adds nothing."""
     B, S_, Lf = frags.shape
     assert S_ == S
     W = tpl.shape[1]
@@ -154,7 +202,6 @@ def consensus_votes(
     d0 = None if frag_d0 is None else frag_d0.reshape(B * S).to(I32).contiguous()
 
     summ = cuda_align.posterior_summary(q, q_len, r, r_len, scoring, d0=d0)
-    N = B * S
     matched = summ.matched                               # [N, W]
     big = Lf + W + 10
     i_first = torch.where(matched, summ.i_first, big)
@@ -164,7 +211,7 @@ def consensus_votes(
     base = summ.base                                     # [N, W]
 
     def red(x):
-        return _red16(x, B, S)
+        return _sum16(x, B, S)
 
     # coverage span of each fragment on the template
     rj = torch.arange(W, dtype=I32, device=dev)[None, :]
@@ -185,34 +232,11 @@ def consensus_votes(
     ins_codes = (summ.ins_pack[:, :, None] >> (2 * k)) & 3   # [N, W, K]
     ins_valid = k < ins_count[:, :, None]                # [N, W, K]
 
-    # ---- reduce over fragment slots per window ----
     four = torch.arange(4, dtype=I32, device=dev)
     onehot = (base[:, :, None] == four) & matched[:, :, None]
-    votes_base = red(onehot)           # [B, W, 4]
-    votes_del = red(cover & ~matched)  # [B, W]
-    coverage = red(cover)              # [B, W]
-    n_matched = red(matched)           # [B, W]
-
-    cand = torch.cat([votes_base, votes_del[:, :, None]], dim=2)
-    winner = _argmax_first(cand, 2)                      # [B, W]; 4 == delete
-    keep_tpl = coverage < min_column_support
-    col_base = torch.where(
-        keep_tpl | (winner == 4), tpl.to(torch.int64), winner
-    ).to(torch.int8)
-    col_del = (winner == 4) & ~keep_tpl
-
-    # ---- insertion majority per boundary ----
-    votes_bnd = red(has_bnd)           # [B, W]
-    more = red(ins_count[:, :, None] > k)  # [B, W, K]
-    stop = votes_bnd[:, :, None] - more
-    extend = more > stop                                 # strict majority
-    ins_len = _leading_true(extend)
-
     ins_onehot = (ins_codes[:, :, :, None] == four) & ins_valid[:, :, :, None]
-    ins_votes = red(ins_onehot)        # [B, W, K, 4]
-    ins_base = _argmax_first(ins_votes, 3).to(torch.int8)
 
-    # ---- equal-base-run conservation votes ----
+    # ---- equal-base-run conservation ----
     # Inside a run of equal template bases every column is matched on
     # SOME optimal path, so the union-of-paths posterior never exposes
     # an indel there.  Base-count conservation does: an anchored
@@ -220,20 +244,7 @@ def consensus_votes(
     # bases across the run; deficit vs the run length votes deletions
     # of run columns, surplus votes insertions of the run base,
     # majority-aggregated per unit like the boundary insertions.
-    tpl32 = tpl.to(I32)
-    colw = rj.expand(B, W)
-    valid_col = colw < tpl_len.to(I32)[:, None]
-    prev_tpl = torch.full_like(tpl32, -1)
-    prev_tpl[:, 1:] = tpl32[:, :-1]
-    is_start_w = (
-        (colw == 0) | (tpl32 != prev_tpl) | ~valid_col
-        | (colw == tpl_len.to(I32)[:, None])
-    )
-    is_end_w = torch.ones_like(is_start_w)
-    is_end_w[:, :-1] = is_start_w[:, 1:]
-    SENT = -(1 << 20)
-    rbeg = _propagate_forward(colw, is_start_w, SENT)
-    rend = _propagate_backward(colw, is_end_w, SENT)
+    _, valid_col, is_start_w, is_end_w, rbeg, rend = _runs(tpl, tpl_len)
     run_len = rend - rbeg + 1
 
     def rep(x):
@@ -244,7 +255,7 @@ def consensus_votes(
     # at a run-END column j, i_last[rend] == i_last[j] and matched[rend]
     # == matched[j]
     is_start = rep(is_start_w)
-    pk = _propagate_forward(i_first * 2 + matched.to(I32), is_start, SENT)
+    pk = _propagate_forward(i_first * 2 + matched.to(I32), is_start, _SENT)
     fb = pk >> 1                                         # i_first[rbeg]
     m_beg = (pk & 1) == 1                                # matched[rbeg]
     at_end = rep(is_end_w & valid_col)
@@ -252,17 +263,91 @@ def consensus_votes(
     consumed = i_last - fb + 1
     deficit = torch.where(anch_end, rep(run_len) - consumed, 0)
 
-    n_anch = red(anch_end)                               # [B, W]
-    del_more = red((deficit[:, :, None] > k) & anch_end[:, :, None])
+    # ---- window-edge insertions ----
+    # Fragments matched at template column 0 vote their unmatched
+    # leading bases as an insertion before the window; symmetric for
+    # the last real column.  Offsets count outward from the window edge.
+    kk1 = torch.arange(INS_CAP, dtype=I32, device=dev)[None, :]   # [1, K]
+    q64 = q.to(torch.int64)
+
+    pre_valid = matched[:, 0]                            # [N]
+    pre_cnt = torch.where(pre_valid, i_first[:, 0].clamp(0, INS_CAP), 0)
+    pre_idx = (i_first[:, 0:1] - 1 - kk1).clamp(0, Lf - 1)        # [N, K]
+    pre_codes = torch.gather(q64, 1, pre_idx.to(torch.int64))
+    pre_ok = kk1 < pre_cnt[:, None]
+
+    last_col = (r_len - 1).clamp(0, W - 1).to(torch.int64)        # [N]
+    m_last = torch.gather(matched, 1, last_col[:, None])[:, 0]
+    il_last = torch.gather(i_last, 1, last_col[:, None])[:, 0]
+    suf_cnt = torch.where(
+        m_last, (q_len - 1 - il_last).clamp(0, INS_CAP), 0
+    )
+    suf_idx = (il_last[:, None] + 1 + kk1).clamp(0, Lf - 1)
+    suf_codes = torch.gather(q64, 1, suf_idx.to(torch.int64))
+    suf_ok = kk1 < suf_cnt[:, None]
+
+    pre = _edge_partials(pre_valid, pre_cnt, pre_codes, pre_ok, B, S)
+    suf = _edge_partials(m_last, suf_cnt, suf_codes, suf_ok, B, S)
+    return VotePartials(
+        red(onehot),                                     # votes_base
+        red(cover & ~matched),                           # votes_del
+        red(cover),                                      # coverage
+        red(matched),                                    # n_matched
+        red(has_bnd),                                    # votes_bnd
+        red(ins_count[:, :, None] > k),                  # more
+        red(ins_onehot),                                 # ins_votes
+        red(anch_end),                                   # n_anch
+        red((deficit[:, :, None] > k) & anch_end[:, :, None]),   # del_more
+        red((-deficit[:, :, None] > k) & anch_end[:, :, None]),  # ins_more
+        *pre, *suf,
+    )
+
+
+def consensus_from_partials(
+    p: VotePartials,
+    tpl: torch.Tensor,        # [B, W] uint8
+    tpl_len: torch.Tensor,    # [B] int32
+    *,
+    min_column_support: int = 2,
+) -> WindowVotes:
+    """Phase B: the votes, insertion majorities, run conservation and
+    window edges of the summed partials (each window's sums over all
+    its slots)."""
+    dev = tpl.device
+    votes_base = p.votes_base.to(I32)
+    votes_del = p.votes_del.to(I32)
+    coverage = p.coverage.to(I32)
+
+    cand = torch.cat([votes_base, votes_del[:, :, None]], dim=2)
+    winner = _argmax_first(cand, 2)                      # [B, W]; 4 == delete
+    keep_tpl = coverage < min_column_support
+    col_base = torch.where(
+        keep_tpl | (winner == 4), tpl.to(torch.int64), winner
+    ).to(torch.int8)
+    col_del = (winner == 4) & ~keep_tpl
+
+    # ---- insertion majority per boundary ----
+    more = p.more.to(I32)
+    stop = p.votes_bnd.to(I32)[:, :, None] - more
+    extend = more > stop                                 # strict majority
+    ins_len = _leading_true(extend)
+    ins_base = _argmax_first(p.ins_votes.to(I32), 3).to(torch.int8)
+
+    # ---- equal-base-run conservation votes ----
+    colw, _, _, is_end_w, rbeg, rend = _runs(tpl, tpl_len)
+    run_len = rend - rbeg + 1
+    tpl32 = tpl.to(I32)
+    n_anch = p.n_anch.to(I32)
+    del_more = p.del_more.to(I32)
+    ins_more = p.ins_more.to(I32)
     del_run = _leading_true(del_more > n_anch[:, :, None] - del_more)
-    ins_more = red((-deficit[:, :, None] > k) & anch_end[:, :, None])
     ins_run = _leading_true(ins_more > n_anch[:, :, None] - ins_more)
     gate = (n_anch < min_column_support) | keep_tpl
     del_run = torch.where(gate, 0, torch.minimum(del_run, run_len - 1))
     ins_run = torch.where(gate, 0, ins_run)
 
     # apply: delete the last del_run columns of each run ...
-    del_back = _propagate_backward(del_run, is_end_w, SENT)
+    del_back = _propagate_backward(del_run, is_end_w, _SENT)
     col_del = col_del | ((rend - colw) < del_back)
     # ... and splice ins_run copies of the run base before the existing
     # insertion at the run's end column: result[k] = run base for
@@ -277,42 +362,15 @@ def consensus_votes(
         torch.int8)
     ins_len = (ins_len + ins_run).clamp(0, INS_CAP)
 
-    # ---- window-edge insertions ----
-    # Fragments matched at template column 0 vote their unmatched
-    # leading bases as an insertion before the window; symmetric for
-    # the last real column.  Offsets count outward from the window edge.
-    kk1 = torch.arange(INS_CAP, dtype=I32, device=dev)[None, :]   # [1, K]
-    q64 = q.to(torch.int64)
-
-    pre_valid = matched[:, 0]                            # [N]
-    pre_cnt = torch.where(pre_valid, i_first[:, 0].clamp(0, INS_CAP), 0)
-    pre_idx = (i_first[:, 0:1] - 1 - kk1).clamp(0, Lf - 1)        # [N, K]
-    pre_codes = torch.gather(q64, 1, pre_idx.to(torch.int64))
-    pre_ok = kk1 < pre_cnt[:, None]
-    pre_len, pre_base = _edge_majority(
-        pre_valid, pre_cnt, pre_codes, pre_ok, B, S
-    )
-
-    last_col = (r_len - 1).clamp(0, W - 1).to(torch.int64)        # [N]
-    m_last = torch.gather(matched, 1, last_col[:, None])[:, 0]
-    il_last = torch.gather(i_last, 1, last_col[:, None])[:, 0]
-    suf_cnt = torch.where(
-        m_last, (q_len - 1 - il_last).clamp(0, INS_CAP), 0
-    )
-    suf_idx = (il_last[:, None] + 1 + kk1).clamp(0, Lf - 1)
-    suf_codes = torch.gather(q64, 1, suf_idx.to(torch.int64))
-    suf_ok = kk1 < suf_cnt[:, None]
-    suf_len, suf_base = _edge_majority(
-        m_last, suf_cnt, suf_codes, suf_ok, B, S
-    )
-
+    pre_len, pre_base = _edge_vote(p.pre_valid, p.pre_more, p.pre_votes)
+    suf_len, suf_base = _edge_vote(p.suf_valid, p.suf_more, p.suf_votes)
     return WindowVotes(
         col_base=col_base,
         col_del=col_del,
         ins_len=ins_len.to(I32),
         ins_base=ins_base,
         coverage=coverage,
-        n_matched=n_matched,
+        n_matched=p.n_matched.to(I32),
         pre_len=pre_len,
         pre_base=pre_base,
         suf_len=suf_len,
@@ -320,10 +378,40 @@ def consensus_votes(
     )
 
 
-def _edge_majority(valid, cnt, codes, ok, B, S):
-    """Majority insertion vote at a window edge.
+def consensus_votes(
+    frags: torch.Tensor,      # [B, S, Lf] uint8 codes
+    frag_len: torch.Tensor,   # [B, S] int32 (0 = empty slot)
+    tpl: torch.Tensor,        # [B, W] uint8
+    tpl_len: torch.Tensor,    # [B] int32 (== W normally)
+    *,
+    S: int,
+    min_column_support: int = 2,
+    scoring: align_ops.Scoring = align_ops.Scoring(),
+    frag_d0: torch.Tensor | None = None,  # [B, S] expected start column
+) -> WindowVotes:
+    """Batched realign-vote consensus: phase A over all S slots, then
+    phase B on its sums."""
+    p = consensus_partials(frags, frag_len, tpl, tpl_len, S=S,
+                           scoring=scoring, frag_d0=frag_d0)
+    return consensus_from_partials(p, tpl, tpl_len,
+                                   min_column_support=min_column_support)
 
-    valid/cnt: [N]; codes/ok: [N, K].  Returns ([B] int32, [B, K] int8)."""
+
+def sum_partials(parts: Sequence[VotePartials]) -> VotePartials:
+    """The partials of one window batch's slot shards added up in shard
+    order, on the first shard's device (int16 adds where the JAX
+    package's psum adds int16)."""
+    dev = parts[0].votes_base.device
+    total = parts[0]
+    for p in parts[1:]:
+        total = VotePartials(*(a + b.to(dev, non_blocking=True)
+                               for a, b in zip(total, p)))
+    return total
+
+
+def _edge_partials(valid, cnt, codes, ok, B, S):
+    """Sums of a window edge's insertion votes: valid/cnt [N], codes/ok
+    [N, K] -> ([B], [B, K], [B, K, 4]) int32."""
     K = codes.shape[1]
     dev = codes.device
     kk = torch.arange(K, device=dev)[None, :]
@@ -331,14 +419,18 @@ def _edge_majority(valid, cnt, codes, ok, B, S):
     def red(x):
         return x.reshape(B, S, *x.shape[1:]).sum(dim=1, dtype=I32)
 
-    n_valid = red(valid.to(I32))                                 # [B]
-    more = red((cnt[:, None] > kk).to(I32))                      # [B, K]
+    four = torch.arange(4, device=dev)
+    onehot = (codes[:, :, None] == four) & ok[:, :, None]
+    return (red(valid.to(I32)), red((cnt[:, None] > kk).to(I32)),
+            red(onehot.to(I32)))
+
+
+def _edge_vote(n_valid, more, votes):
+    """Majority insertion at a window edge from its sums: ([B] int32,
+    [B, K] int8)."""
     stop = n_valid[:, None] - more
     extend = more > stop
     length = _leading_true(extend)
-    four = torch.arange(4, device=dev)
-    onehot = (codes[:, :, None] == four) & ok[:, :, None]
-    votes = red(onehot.to(I32))                                  # [B, K, 4]
     base = _argmax_first(votes, 2).to(torch.int8)
     return length, base
 
@@ -417,6 +509,12 @@ def assemble_template_device(
     return out.to(torch.uint8), new_len
 
 
+def _warm_slots(S: int, warm_frac: float) -> int:
+    """Slots a warm round realigns: the top max(WARM_MIN_SLOTS,
+    ceil(S * warm_frac)) of S."""
+    return min(S, max(WARM_MIN_SLOTS, math.ceil(S * warm_frac)))
+
+
 def consensus_votes_rounds(
     frags, frag_len, tpl, tpl_len, *, S, rounds, min_column_support,
     scoring, frag_d0=None, warm_frac: float = 1.0,
@@ -433,7 +531,7 @@ def consensus_votes_rounds(
     Lt = tpl.shape[1]
     for _ in range(max(1, rounds) - 1):
         if warm_frac < 1.0:
-            Sw = min(S, max(WARM_MIN_SLOTS, math.ceil(S * warm_frac)))
+            Sw = _warm_slots(S, warm_frac)
             v = consensus_votes(
                 frags[:, :Sw], frag_len[:, :Sw], tpl, tpl_len, S=Sw,
                 min_column_support=min_column_support, scoring=scoring,
@@ -452,6 +550,131 @@ def consensus_votes_rounds(
         frag_d0=frag_d0,
     )
     return v, tpl_len
+
+
+class SlotShard(NamedTuple):
+    """One frag shard of a window batch, on its device: S local slots
+    of every window, and the windows' templates."""
+
+    frags: torch.Tensor      # [B, S, Lf] uint8
+    frag_len: torch.Tensor   # [B, S] int32
+    tpl: torch.Tensor        # [B, W] uint8
+    tpl_len: torch.Tensor    # [B] int32
+    frag_d0: torch.Tensor | None  # [B, S] int32
+
+
+def consensus_votes_rounds_frag(
+    shards: Sequence[SlotShard], *, S, rounds, min_column_support, scoring,
+    warm_frac: float = 1.0,
+) -> list:
+    """consensus_votes_rounds with each window's slots split over
+    frag shards (S local slots each, shard k holding global slots
+    k*S .. k*S + S - 1): every round runs phase A on each shard, adds
+    the shards' partials in shard order and copies the sums back to each
+    shard, where phase B and the next template follow, so every shard
+    assembles the same template.  A warm round zeroes the lengths of
+    global slots >= Sw instead of slicing (an empty slot adds nothing:
+    the same votes), and every local slot still runs the aligner.
+    Returns [(WindowVotes, final template lengths)] per shard, all
+    equal."""
+    S_global = S * len(shards)
+    Lt = shards[0].tpl.shape[1]
+    tpls = [(sh.tpl, sh.tpl_len) for sh in shards]
+    n_rounds = max(1, rounds)
+    for rd in range(n_rounds):
+        warm = rd < n_rounds - 1 and warm_frac < 1.0
+        parts = []
+        for k, sh in enumerate(shards):
+            fl = sh.frag_len
+            if warm:
+                slot = k * S + torch.arange(S, device=fl.device)[None, :]
+                fl = torch.where(slot < _warm_slots(S_global, warm_frac),
+                                 fl, 0)
+            parts.append(consensus_partials(
+                sh.frags, fl, *tpls[k], S=S, scoring=scoring,
+                frag_d0=sh.frag_d0))
+        total = sum_partials(parts)
+        votes = [
+            consensus_from_partials(
+                VotePartials(*(x.to(tp.device, non_blocking=True)
+                               for x in total)),
+                tp, tl, min_column_support=min_column_support)
+            for tp, tl in tpls
+        ]
+        if rd < n_rounds - 1:
+            tpls = [assemble_template_device(v, tl, Lt)
+                    for v, (_, tl) in zip(votes, tpls)]
+    return [(v, tl) for v, (_, tl) in zip(votes, tpls)]
+
+
+class PackedVotes(NamedTuple):
+    """Transfer-optimized consensus description (~4x fewer bytes than
+    WindowVotes): insertion bases 2-bit packed, per-column fields in
+    the narrowest dtype, coverage diagnostics dropped;
+    assemble_consensus_batch unpacks on the host."""
+
+    col_base: torch.Tensor   # [B, W] int8
+    col_del: torch.Tensor    # [B, W] int8 (0/1)
+    ins_len: torch.Tensor    # [B, W] uint8 (<= INS_CAP)
+    ins_pack: torch.Tensor   # [B, W] int32: 2 bits per inserted base
+    pre_len: torch.Tensor    # [B] int32
+    pre_pack: torch.Tensor   # [B] int32
+    suf_len: torch.Tensor    # [B] int32
+    suf_pack: torch.Tensor   # [B] int32
+
+
+def pack_votes(v: WindowVotes) -> PackedVotes:
+    """Device: WindowVotes -> PackedVotes (the JAX package's pack_votes)."""
+    return PackedVotes(
+        col_base=v.col_base.to(torch.int8),
+        col_del=v.col_del.to(torch.int8),
+        ins_len=v.ins_len.to(torch.uint8),
+        ins_pack=_pack2(v.ins_base),
+        pre_len=v.pre_len.to(I32),
+        pre_pack=_pack2(v.pre_base),
+        suf_len=v.suf_len.to(I32),
+        suf_pack=_pack2(v.suf_base),
+    )
+
+
+def unpack_votes_host(p: PackedVotes) -> WindowVotes:
+    """Host-side inverse of pack_votes (numpy); coverage/n_matched are
+    not reconstructed (diagnostics only, absent from the wire)."""
+    kk = 2 * np.arange(INS_CAP, dtype=np.int32)
+
+    def unpack2(x):
+        return ((np.asarray(x)[..., None] >> kk) & 3).astype(np.int8)
+
+    z = None
+    return WindowVotes(
+        col_base=np.asarray(p.col_base).astype(np.int8),
+        col_del=np.asarray(p.col_del).astype(bool),
+        ins_len=np.asarray(p.ins_len).astype(np.int32),
+        ins_base=unpack2(p.ins_pack),
+        coverage=z,
+        n_matched=z,
+        pre_len=np.asarray(p.pre_len),
+        pre_base=unpack2(p.pre_pack),
+        suf_len=np.asarray(p.suf_len),
+        suf_base=unpack2(p.suf_pack),
+    )
+
+
+def consensus_votes_packed(
+    frags, frag_len, tpl, tpl_len, *, S, min_column_support=2,
+    scoring=align_ops.Scoring(), frag_d0=None, frags_packed: bool = False,
+) -> PackedVotes:
+    """Wire-format consensus step: 2-bit-packed fragment upload
+    (frags_packed=True) and packed vote download."""
+    if frags_packed:
+        frags = unpack_bases(frags, frags.shape[-1] * 4)
+    return pack_votes(
+        consensus_votes(
+            frags, frag_len, tpl, tpl_len, S=S,
+            min_column_support=min_column_support, scoring=scoring,
+            frag_d0=frag_d0,
+        )
+    )
 
 
 def pack_bases_host(codes: np.ndarray) -> np.ndarray:
@@ -581,3 +804,97 @@ def wire_decode_cons(arr: np.ndarray, Lt: int) -> list:
     shifts = np.arange(4, dtype=np.uint8) * 2
     codes = ((packed[:, :, None] >> shifts) & 3).reshape(len(arr), Lt)
     return [codes[b, : lens[b]] for b in range(len(arr))]
+
+
+def wire_decode_votes(arr: np.ndarray, W: int
+                      ) -> tuple[PackedVotes, np.ndarray]:
+    """Host inverse of consensus_votes_wire's output layout.  Returns
+    (votes, w_len) — w_len is the FINAL round's per-window template
+    length (the host assembles the final consensus against it)."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    o = 0
+
+    def take(n):
+        nonlocal o
+        out = arr[:, o : o + n]
+        o += n
+        return out
+
+    def i32(u8):
+        return np.ascontiguousarray(u8).view(np.int32)
+
+    col_base = take(W).astype(np.int8)
+    col_del = take(W).astype(np.int8)
+    ins_len = take(W)
+    ins_pack = i32(take(4 * W))
+    pre_len = i32(take(4))[:, 0]
+    pre_pack = i32(take(4))[:, 0]
+    suf_len = i32(take(4))[:, 0]
+    suf_pack = i32(take(4))[:, 0]
+    w_len = i32(take(4))[:, 0]
+    return PackedVotes(
+        col_base=col_base, col_del=col_del, ins_len=ins_len,
+        ins_pack=ins_pack, pre_len=pre_len, pre_pack=pre_pack,
+        suf_len=suf_len, suf_pack=suf_pack,
+    ), w_len
+
+
+def assemble_consensus_batch(votes, w_lens) -> list:
+    """Host: flatten each window's vote arrays into a consensus code
+    array (uint8).  Layout: prefix insertion (outermost offset first),
+    then per column j: base (unless deleted) followed by the insertion
+    after j, then the suffix insertion.  Accepts WindowVotes or the
+    wire-format PackedVotes."""
+    if isinstance(votes, PackedVotes):
+        from consent_tpu_torch import native
+
+        fast = native.assemble_windows_native(
+            votes.col_base, votes.col_del, votes.ins_len,
+            votes.ins_pack, votes.pre_len, votes.pre_pack,
+            votes.suf_len, votes.suf_pack, list(w_lens),
+        )
+        if fast is not None:
+            return fast
+        votes = unpack_votes_host(votes)
+    col_base = np.asarray(votes.col_base)
+    col_del = np.asarray(votes.col_del)
+    ins_len = np.asarray(votes.ins_len)
+    ins_base = np.asarray(votes.ins_base)
+    pre_len = np.asarray(votes.pre_len)
+    pre_base = np.asarray(votes.pre_base)
+    suf_len = np.asarray(votes.suf_len)
+    suf_base = np.asarray(votes.suf_base)
+    out = []
+    for b, w_len in enumerate(w_lens):
+        cb = col_base[b, :w_len].astype(np.uint8)
+        cd = col_del[b, :w_len]
+        il = ins_len[b, :w_len]
+        ib = ins_base[b, :w_len]
+        # Expanded buffer: each column contributes (1 - del) + ins_len.
+        counts = (~cd).astype(np.int64) + il
+        total = int(counts.sum())
+        buf = np.empty(total, dtype=np.uint8)
+        ends = np.cumsum(counts)
+        starts = ends - counts
+        keep = ~cd
+        buf[starts[keep]] = cb[keep]
+        for j in np.flatnonzero(il > 0):
+            s = starts[j] + (0 if cd[j] else 1)
+            buf[s : s + il[j]] = ib[j, : il[j]]
+        parts = []
+        if pre_len[b]:
+            # offsets count outward from column 0 -> reverse for output
+            parts.append(pre_base[b, : pre_len[b]][::-1].astype(np.uint8))
+        parts.append(buf)
+        if suf_len[b]:
+            parts.append(suf_base[b, : suf_len[b]].astype(np.uint8))
+        out.append(np.concatenate(parts))
+    return out
+
+
+def assemble_consensus(votes: WindowVotes, window_idx: int, w_len: int) -> np.ndarray:
+    """Host: assemble a single window (convenience wrapper)."""
+    return assemble_consensus_batch(
+        WindowVotes(*[np.asarray(x)[window_idx : window_idx + 1] for x in votes]),
+        [w_len],
+    )[0]

@@ -45,6 +45,13 @@ runs.  A capture runs the wrappers once and launches nothing, so its
 launches are recorded (`cuda_align.recording`) and added to the counts
 on every replay.
 
+Meshes.  A call split over the shards of a mesh (parallel/mesh.py)
+replays the captured call of each shard's shape on the shard's own card.
+Two shards on one card share that call, and that is safe: each replay
+and the copy of its output to the host are enqueued together, under the
+lock, on the card's one work stream, so the second replay overwrites
+the static output only after the first one's copy has read it.
+
 On the CPU nothing is captured: the callers run their plain path.
 """
 
@@ -69,10 +76,16 @@ _calls: Dict[tuple, "CapturedCall"] = {}
 
 
 def _index(device) -> int:
+    """The card's index.  It is never read from the current device: the
+    pipeline's devices (resolve_device, parallel/mesh.py) always carry
+    their index, so every shard of a mesh keys its own card's streams,
+    pool and captured calls whichever thread enqueues it."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"captured calls run on CUDA devices, not {dev}")
-    return torch.cuda.current_device() if dev.index is None else dev.index
+    if dev.index is None:
+        raise ValueError(f"captured calls need an indexed device, not {dev}")
+    return dev.index
 
 
 def streams(device) -> Tuple["torch.cuda.Stream", "torch.cuda.Stream"]:
@@ -125,6 +138,17 @@ class Pending:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+
+class Joined:
+    """The results of a call split by rows over shards, in shard order:
+    one Pending per shard, joined along the rows on the host."""
+
+    def __init__(self, parts: Sequence[Pending]):
+        self.parts = list(parts)
+
+    def result(self) -> np.ndarray:
+        return np.concatenate([p.result() for p in self.parts], axis=0)
 
 
 def _stage_in(buf: np.ndarray, dst: torch.Tensor) -> None:

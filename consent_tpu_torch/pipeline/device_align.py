@@ -7,12 +7,16 @@ CPU), and returns host AlignSpans.  On the card each bucket shape
 (N, Lq, Lr) is captured as a CUDA graph at its first use and replayed
 after (ops/graphs.py), as the JAX package jits the call per static
 (Lq, Lr).
+
+With a mesh (ConsensusEngine.mesh), the lane batch is split over all
+of the mesh's shards, data and frag alike, as the JAX package's
+shard_map splits it over every device of its mesh.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -23,6 +27,7 @@ from consent_tpu_torch.ops import graphs as graph_ops
 from consent_tpu_torch.ops.consensus import (
     _bitcast32, pack_bases_host, unpack_bases,
 )
+from consent_tpu_torch.parallel.mesh import run_call
 from consent_tpu_torch.pipeline.stitch import STITCH_SCORING, AlignSpan
 
 MAX_LANES_PER_CALL = 1024
@@ -36,8 +41,9 @@ _SCORING = align_ops.Scoring(
 
 
 def resolve_device(device) -> torch.device:
-    """The device a pipeline entry point runs on; raises when CUDA is
-    asked for and there is no card (it never falls back to the CPU)."""
+    """The device a pipeline entry point runs on, a card with its index
+    (the current one for "cuda"); raises when CUDA is asked for and
+    there is no card (it never falls back to the CPU)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -45,6 +51,8 @@ def resolve_device(device) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -77,6 +85,26 @@ def _next_pow2(x: int) -> int:
     return n
 
 
+def device_batch_align(qs: List[np.ndarray], rs: List[np.ndarray],
+                       fixed_len: Optional[int] = None, mesh=None,
+                       device="cuda", graphs: bool = True
+                       ) -> List[AlignSpan]:
+    """Align each (qs[i], rs[i]) pair locally on the device (split over
+    `mesh` when given); returns spans.
+
+    fixed_len pins the padded sequence length so every call hits one
+    captured shape; without it the lengths round up to the batch
+    maxima."""
+    dev = resolve_device(device) if mesh is None else None
+    out: List[AlignSpan] = []
+    for lo in range(0, len(qs), MAX_LANES_PER_CALL):
+        out.extend(_collect(_dispatch_one(
+            qs[lo : lo + MAX_LANES_PER_CALL],
+            rs[lo : lo + MAX_LANES_PER_CALL], fixed_len, dev, graphs,
+            mesh)))
+    return out
+
+
 # at or below this lane count a device stitch round is pure launch
 # latency; the native host path (posterior_spans_batch, bit-equal
 # contract) wins outright AND frees the device for the consensus stage
@@ -93,7 +121,7 @@ class FixedAligner:
     the card replay captured graphs; graphs=False runs them op by op,
     for comparison only."""
 
-    def __init__(self, cfg, device="cuda", graphs=True):
+    def __init__(self, cfg, device="cuda", graphs=True, mesh=None):
         self.fixed_len = _round_up(
             max(cfg.window_size + 2 * cfg.window_overlap,
                 cfg.window_size + cfg.frag_slack),
@@ -101,6 +129,7 @@ class FixedAligner:
         )
         self.device = resolve_device(device)
         self.graphs = graphs and self.device.type == "cuda"
+        self.mesh = mesh
 
     def _native(self, qs, rs):
         if self.device.type == "cpu":
@@ -121,7 +150,7 @@ class FixedAligner:
                 return ("done", spans)
         assert len(qs) <= MAX_LANES_PER_CALL
         return ("dev", _dispatch_one(qs, rs, self.fixed_len, self.device,
-                                     self.graphs))
+                                     self.graphs, self.mesh))
 
     def collect(self, handle):
         kind, payload = handle
@@ -138,13 +167,21 @@ class FixedAligner:
         return out
 
 
-def _dispatch_one(qs, rs, fixed_len, device, graphs=False):
-    """Queue one batched span call on the device (a captured graph's
-    replay when `graphs`); returns (Pending, n) — _collect fetches it."""
+def _dispatch_one(qs, rs, fixed_len=None, device=None, graphs=False,
+                  mesh=None):
+    """Queue one batched span call on the device, or split over the
+    shards of `mesh` (a captured graph's replay per shard on a card when
+    `graphs`); returns (Pending, n) — _collect fetches it."""
+    devs = [device] if mesh is None else mesh.devices()
+    nd = len(devs)
     n = len(qs)
-    lanes = _next_pow2(n)
-    Lq = max(_round_up(max(len(q) for q in qs), 128), fixed_len)
-    Lr = max(_round_up(max(len(r) for r in rs), 128), fixed_len)
+    per = _next_pow2(-(-n // nd))     # lanes of each shard
+    lanes = nd * per
+    Lq = _round_up(max(len(q) for q in qs), 128)
+    Lr = _round_up(max(len(r) for r in rs), 128)
+    if fixed_len is not None:
+        Lq = max(Lq, fixed_len)
+        Lr = max(Lr, fixed_len)
     q = np.zeros((lanes, Lq), dtype=np.uint8)
     r = np.zeros((lanes, Lr), dtype=np.uint8)
     ln = np.zeros((lanes, 2), dtype=np.int32)
@@ -158,14 +195,10 @@ def _dispatch_one(qs, rs, fixed_len, device, graphs=False):
         axis=1,
     )
     fn = functools.partial(_spans_wire_body, Lq=Lq, Lr=Lr)
-    if device.type == "cpu":
-        pending = graph_ops.Pending(fn(torch.from_numpy(buf)))
-    elif graphs:
-        pending = graph_ops.captured(("stitch", lanes, Lq, Lr), fn,
-                                     buf.shape, device)(buf)
-    else:
-        pending = graph_ops.run_eager(fn, buf, device)
-    return pending, n
+    key = ("stitch", per, Lq, Lr)
+    parts = [run_call(dev, fn, buf[k * per : (k + 1) * per], graphs, key)
+             for k, dev in enumerate(devs)]
+    return (parts[0] if nd == 1 else graph_ops.Joined(parts)), n
 
 
 def _collect(handle):

@@ -11,12 +11,13 @@ into fixed-shape device batches; stitching runs reads in lockstep
 rounds (pipeline/stitch.py).  Everything is deterministic: results are
 emitted in input pile order.
 
-The engine runs on one explicit `device`: "cuda" (the default) runs
-the CUDA kernels and raises when there is no card; "cpu" runs the
-kernels' plain PyTorch versions.  On the card every consensus call is a
-replay of a CUDA graph captured once per call shape (ops/graphs.py),
-as the JAX package jits it once per static shape; `graphs=False` runs
-the calls op by op instead, for comparison only.
+The engine runs on a mesh of devices (parallel/mesh.py): "cuda" (the
+default) is every local card, runs the CUDA kernels and raises when
+there is no card; "cpu" runs the kernels' plain PyTorch versions.  On
+the card every consensus call of the data axis is a replay of a CUDA
+graph captured once per shard shape (ops/graphs.py), as the JAX package
+jits it once per static shape; `graphs=False` runs the calls op by op
+instead, for comparison only.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from consent_tpu_torch.ops import consensus as cons_ops
 from consent_tpu_torch.ops import graphs as graph_ops
 from consent_tpu_torch.ops import kmer as kmer_ops
 from consent_tpu_torch.ops.align import Scoring
+from consent_tpu_torch.parallel import mesh as mesh_mod
 from consent_tpu_torch.pipeline import stitch as stitch_mod
 from consent_tpu_torch.pipeline.device_align import resolve_device
 from consent_tpu_torch.utils.observe import GLOBAL_STATS as STATS
@@ -72,16 +74,30 @@ def _bucket_for(n: int, cap: int) -> int:
 
 
 class ConsensusEngine:
-    """Batched window-consensus executor on one device.
+    """Batched window-consensus executor over a mesh of devices.
 
-    On the card, every call shape `run` can dispatch (call_shapes) is
-    captured as a CUDA graph when the engine is built, before any chain
-    thread runs (a process captures each shape once); `graphs=False`
-    keeps the calls eager."""
+    Devices are chosen as the JAX package chooses them: every local
+    device by default (every card for "cuda"; `devices` names the list
+    instead, which may repeat a device, as XLA's virtual host devices
+    do in the JAX package's tests), n_devices of them at most, window
+    batches split over the `data` axis, and fragment slots over a
+    `frag` axis too when one window's slots (s_cap) exceed one device's
+    lane budget (device_lanes) or frag_devices asks for it.
 
-    def __init__(self, cfg: ConsentConfig, device="cuda", graphs=True):
+    On the card, every per-shard call shape `run` can dispatch on the
+    data axis (call_shapes) is captured as a CUDA graph on each card of
+    the mesh when the engine is built, before any chain thread runs (a
+    process captures each shape once per card); `graphs=False` keeps
+    the calls eager.  Calls over a frag axis run eagerly."""
+
+    def __init__(self, cfg: ConsentConfig, device="cuda", graphs=True,
+                 devices: Optional[Sequence] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if devices is None:
+            resolve_device(device)      # raises without a card
+            local = mesh_mod.local_devices(device)
+        else:
+            local = [resolve_device(d) for d in devices]
         self.scoring = Scoring(
             match=cfg.match_score,
             mismatch=cfg.mismatch_score,
@@ -95,28 +111,49 @@ class ConsensusEngine:
         self.s_cap = max(S_BUCKETS[-1], cfg.max_msa + 1)
         self.Lf = self._round128(cfg.window_size)
         self.Lt = self._round128(cfg.window_size + cfg.frag_slack)
-        if (cfg.n_devices or 1) > 1 or (cfg.frag_devices or 1) > 1:
-            raise NotImplementedError(
-                "consent_tpu_torch runs on one device: n_devices and "
-                "frag_devices > 1 are not supported yet"
+        # device parallelism: window batches split over a `data` axis
+        # of the local devices; deep piles whose fragment slots exceed
+        # one device's lane budget split the slots over a `frag` axis
+        # too, the vote reductions summed over it (parallel/mesh.py)
+        n_local = len(local)
+        self.n_devices = min(cfg.n_devices or n_local, n_local)
+        nf = cfg.frag_devices
+        if nf is None:
+            nf = (
+                self.n_devices
+                if self.s_cap > cfg.device_lanes and self.n_devices > 1
+                else 1
             )
-        self.max_lanes = cfg.device_lanes
+        self.frag_devices = max(1, min(nf, self.n_devices))
+        self.mesh = mesh_mod.make_mesh(local[: self.n_devices],
+                                       frag_axis=self.frag_devices)
+        self.device = self.mesh.grid[0][0]
+        self.max_lanes = cfg.device_lanes * self.n_devices
         self.rounds = max(1, cfg.consensus_rounds)
         self.graphs = graphs and self.device.type == "cuda"
-        if self.graphs:
+        if self.graphs and self.frag_devices == 1:
             self._capture_all()
 
     def call_shapes(self) -> Set[Tuple[int, int]]:
-        """The (fragment slots S, windows B) of every device call `run`
-        can make: each fragment bucket a window of 1 to max_msa + 1
-        fragments falls in, at its two batch sizes {tail_b, max_b}."""
+        """The per-shard (fragment slots, windows) of every device call
+        `run` can make: each fragment bucket a window of 1 to
+        max_msa + 1 fragments falls in, at its two batch sizes
+        {tail_b, max_b}, split over the mesh."""
+        nd, nf = self.mesh.shape
         shapes = set()
         for n in range(1, self.cfg.max_msa + 2):
-            S = _bucket_for(n, self.s_cap)
+            S = self._bucket(n)
             max_b = self._max_b(S)
-            shapes.add((S, self._pad_b(1, max_b)))
-            shapes.add((S, max_b))
+            for B in (self._pad_b(1, max_b), max_b):
+                shapes.add((S // nf, B // nd))
         return shapes
+
+    def _bucket(self, n: int) -> int:
+        """Fragment slots of a window with n fragments: its bucket,
+        rounded up to equal frag shards."""
+        b = _bucket_for(n, self.s_cap)
+        nf = self.frag_devices
+        return -(-b // nf) * nf
 
     def _wire_fn(self, S: int, rounds: int):
         cfg = self.cfg
@@ -126,28 +163,30 @@ class ConsensusEngine:
             rounds=rounds, assemble_out=True, warm_frac=cfg.warm_frac,
         )
 
-    def _captured(self, S: int, B: int, rounds: int):
-        """The graph of one call shape; the key holds what
-        consensus_votes_wire's JAX counterpart takes as static."""
+    def _captured(self, S: int, B: int, rounds: int, device=None):
+        """The graph of one per-shard call shape on `device` (default:
+        the mesh's first)."""
         cfg = self.cfg
-        key = ("consensus", S, B, self.Lf // 4, self.Lt,
-               cfg.min_column_support, self.scoring, rounds, True,
-               cfg.warm_frac)
+        key = mesh_mod.wire_key(S, B, self.Lf // 4, self.Lt,
+                                cfg.min_column_support, self.scoring, rounds,
+                                True, cfg.warm_frac)
         row = S * (self.Lf // 4) + 4 * S + self.Lt + 4 + 4 * S
         return graph_ops.captured(key, self._wire_fn(S, rounds), (B, row),
-                                  self.device)
+                                  device or self.device)
 
     def _capture_all(self) -> None:
         n0 = len(graph_ops.calls())
         t0 = time.perf_counter()
         shapes = sorted(self.call_shapes())
-        with STATS.timer("consensus.capture", len(shapes)):
-            for S, B in shapes:
-                self._captured(S, B, self.rounds)
+        devs = self.mesh.distinct()
+        with STATS.timer("consensus.capture", len(shapes) * len(devs)):
+            for dev in devs:
+                for S, B in shapes:
+                    self._captured(S, B, self.rounds, dev)
         new = len(graph_ops.calls()) - n0
         if new:
             print(f"[consent_tpu_torch] captured {new} consensus call "
-                  f"shapes of {len(shapes)} in "
+                  f"shapes of {len(shapes)} on {len(devs)} device(s) in "
                   f"{time.perf_counter() - t0:.3f} s", file=sys.stderr)
 
     @staticmethod
@@ -171,8 +210,7 @@ class ConsensusEngine:
                 t.counts = SparseCounts.from_dense(
                     np.zeros(1, np.int32))
                 continue
-            b = _bucket_for(n, self.s_cap)
-            buckets.setdefault(b, []).append(t)
+            buckets.setdefault(self._bucket(n), []).append(t)
 
         jobs: List[Tuple[List[WindowTask], int]] = []
         for S, ts in buckets.items():
@@ -215,13 +253,16 @@ class ConsensusEngine:
         self._host_post(sub, S, cons_list)
 
     def _max_b(self, S: int) -> int:
-        """Windows per device call for bucket S."""
-        return max(1, min(self.max_lanes // S, MAX_B))
+        """Windows per device call for bucket S (a multiple of the
+        data-axis size, so the shards are equal)."""
+        d = self.mesh.shape[0]
+        return max(d, min(self.max_lanes // S, MAX_B) // d * d)
 
     def _pad_b(self, n: int, max_b: int) -> int:
         """Window-batch sizes come from a TWO-point set per fragment
         bucket — {tail_b, max_b} — so the device sees few shapes."""
-        tail_b = min(16, max_b)
+        d = self.mesh.shape[0]
+        tail_b = min(d * -(-16 // d), max_b)  # >= 16, divisible by d
         if n <= tail_b:
             return tail_b
         return max_b
@@ -252,22 +293,38 @@ class ConsensusEngine:
                 tpl, tpl_len)
 
     def _dispatch(self, S, frags, frag_len, frag_d0, tpl, tpl_len,
-                  rounds=1) -> graph_ops.Pending:
+                  rounds=1):
         """One wire-format consensus call with all refinement rounds
-        (one upload buffer in, one download buffer out), enqueued: a
-        captured graph's replay on the card, the plain path on the CPU;
-        _fetch_cons waits for the result."""
+        over the mesh, enqueued: on the data axis each shard's rows go
+        through the one-device call (a captured graph's replay on a
+        card, the plain path on the CPU); over a frag axis the slots
+        split too and the call runs op by op.  _fetch_cons waits for
+        the result."""
+        cfg = self.cfg
+        if self.frag_devices > 1:
+            # deep-pile geometry: fragment slots split over `frag`, the
+            # vote reductions summed over it
+            cons, lens = mesh_mod.sharded_consensus_step(
+                self.mesh, frags, frag_len, tpl, tpl_len, S=S,
+                min_column_support=cfg.min_column_support,
+                scoring=self.scoring,
+                frag_d0=frag_d0 if self.scoring.band else None,
+                packed=True, frags_packed=True, rounds=rounds,
+                assemble_out=True, warm_frac=cfg.warm_frac,
+            )
+            return graph_ops.Pending(torch.cat(
+                [cons, cons_ops._bytes32(lens[:, None])], dim=1))
         buf = cons_ops.wire_encode_inputs(
             frags, frag_len, tpl, tpl_len, frag_d0
         )
-        if self.graphs:
-            return self._captured(S, buf.shape[0], rounds)(buf)
-        fn = self._wire_fn(S, rounds)
-        if self.device.type == "cpu":
-            return graph_ops.Pending(fn(torch.from_numpy(buf)))
-        return graph_ops.run_eager(fn, buf, self.device)
+        return mesh_mod.sharded_wire_step(
+            self.mesh, buf, S=S, Pb=frags.shape[-1], Lt=self.Lt,
+            min_column_support=cfg.min_column_support,
+            scoring=self.scoring, rounds=rounds, assemble_out=True,
+            warm_frac=cfg.warm_frac, graphs=self.graphs,
+        )
 
-    def _fetch_cons(self, pending: graph_ops.Pending):
+    def _fetch_cons(self, pending):
         """-> list of per-window assembled consensus code arrays."""
         return cons_ops.wire_decode_cons(pending.result(), self.Lt)
 
@@ -417,19 +474,23 @@ def process_piles(
     chunk_reads: int = 1024,
     device="cuda",
     graphs: bool = True,
+    devices: Optional[Sequence] = None,
 ) -> Iterator[Tuple[str, np.ndarray, np.ndarray]]:
-    """Full pipeline over a pile stream, on `device`.
+    """Full pipeline over a pile stream, on `device` (every local card
+    for "cuda") or on the explicit device list `devices`.
 
     Yields (name, codes, solid) per input pile, in order; dropped
     reads yield empty arrays (the caller skips empty output).  On the
     card the device calls replay captured graphs; graphs=False runs
     them op by op (for comparison only).
     """
-    engine = ConsensusEngine(cfg, device=device, graphs=graphs)
+    engine = ConsensusEngine(cfg, device=device, graphs=graphs,
+                             devices=devices)
     if batch_align is None:
         from consent_tpu_torch.pipeline.device_align import FixedAligner
 
-        batch_align = FixedAligner(cfg, device=engine.device, graphs=graphs)
+        batch_align = FixedAligner(cfg, device=engine.device, graphs=graphs,
+                                   mesh=engine.mesh)
 
     def geometry_stage(chunk: List[Pile]):
         """Chunk stage 0: window geometry (pure host), its own pipeline

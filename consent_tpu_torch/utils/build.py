@@ -21,15 +21,18 @@ BUILD_DIR = os.path.join(
 
 
 def build_shared(name: str, sources: Sequence[str],
-                 commands: Sequence[Sequence[str]]) -> str:
+                 commands: Sequence[Sequence[str]],
+                 deps: Sequence[str] = ()) -> str:
     """Compile `sources` into build/lib<name>-<hash>.so unless it exists.
 
-    `commands` are alternative compiler command lines, tried in order;
+    `deps` are headers the sources include: they join the hash, not the
+    command line.  `commands` are alternative compiler command lines,
+    tried in order;
     each is completed with the sources and `-o <output>`.  Returns the
     library's path; raises RuntimeError with the compiler's messages
     when every command fails."""
     h = hashlib.sha256()
-    for src in sources:
+    for src in [*sources, *deps]:
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(repr([list(c) for c in commands]).encode())

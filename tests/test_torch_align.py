@@ -315,7 +315,8 @@ def test_full_lane_chunks_cover_lanes_within_the_budget():
     """A full-width call launches its lanes in chunks that cover [0, N)
     once, in order, each with at most HM_BUDGET_BYTES of hm scratch; the
     main path's widest call (1,024 lanes of 640 x 640) stays one launch,
-    and one lane over the budget raises naming the limit."""
+    and one lane over the budget runs alone, raising, naming the limit,
+    only where the card's free memory cannot hold it."""
     budget = cuda_align.HM_BUDGET_BYTES
     assert cuda_align.full_lane_chunks(1024, 640, 640) == [(0, 1024)]
     for N, Lq, W in ((1, 640, 640), (64, 4224, 4224), (1024, 4224, 4224),
@@ -330,8 +331,11 @@ def test_full_lane_chunks_cover_lanes_within_the_budget():
         assert cuda_align.full_hm_lane_bytes(Lq, W) == (
             (Lq + 32) * ((W + 127) // 128 * 128) * 2)
     assert len(cuda_align.full_lane_chunks(64, 8192, 8192)) > 1
+    per = cuda_align.full_hm_lane_bytes(70000, 16384)
+    assert per > budget
+    assert cuda_align.full_lane_chunks(1, 70000, 16384) == [(0, 1)]
     with pytest.raises(ValueError, match="HM_BUDGET_BYTES"):
-        cuda_align.full_lane_chunks(1, 70000, 16384)
+        cuda_align.full_lane_chunks(1, 70000, 16384, free_bytes=per - 1)
     assert cuda_align.FULL_MAX_W == 16384
 
 

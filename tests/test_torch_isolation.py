@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: it imports neither jax nor consent_tpu,
-its device entry points refuse to run on a missing card, the paths it
-does not have yet raise, and its copied host modules and functions
-still match the JAX package's originals."""
+its device entry points refuse to run on a missing card, its engine
+selects devices as the JAX package's does, and its copied host modules
+and functions still match the JAX package's originals."""
 
 import ast
 import os
@@ -32,6 +32,10 @@ VERBATIM_FUNCTIONS = [
     ("ops/kmer.py", "count_kmers_host"),
     ("ops/kmer.py", "count_anchors_host"),
     ("ops/kmer.py", "solidity_mask"),
+    ("ops/consensus.py", "unpack_votes_host"),
+    ("ops/consensus.py", "wire_decode_votes"),
+    ("ops/consensus.py", "assemble_consensus_batch"),
+    ("ops/consensus.py", "assemble_consensus"),
 ]
 
 ISOLATED = textwrap.dedent(
@@ -60,6 +64,7 @@ ISOLATED = textwrap.dedent(
            if n == "consent_tpu" or n.startswith("consent_tpu.")
            or n == "jax" and sys.modules[n] is not None]
     assert not bad, bad
+    assert "consent_tpu_torch.parallel.mesh" in names
 
     from consent_tpu_torch import cli, correct_preset
     from consent_tpu_torch.pipeline import device_align, engine
@@ -152,9 +157,11 @@ def test_native_source_is_the_originals():
 
 
 def test_unported_paths_raise():
-    """Multi-GPU (n_devices / frag_devices > 1) is the one path not
-    ported yet; --resume, --process-count and --profile-dir run
-    (tests/test_torch_resume.py)."""
+    """Device selection as the JAX package's engine makes it
+    (consent_tpu/pipeline/engine.py:93-115): n_devices above the local
+    count clamps to it, frag_devices is chosen automatically when one
+    window's fragment slots exceed device_lanes, and max_lanes scales
+    with the devices.  A config key the JAX package lacks still raises."""
     import dataclasses
 
     from consent_tpu_torch import correct_preset
@@ -162,9 +169,21 @@ def test_unported_paths_raise():
     from consent_tpu_torch.pipeline import engine
 
     cfg = correct_preset()
-    for bad in (dict(n_devices=2), dict(frag_devices=2)):
-        with pytest.raises(NotImplementedError):
-            engine.ConsensusEngine(dataclasses.replace(cfg, **bad),
-                                   device="cpu")
+    four = ["cpu"] * 4
+
+    def pick(devices=None, **kw):
+        eng = engine.ConsensusEngine(dataclasses.replace(cfg, **kw),
+                                     device="cpu", devices=devices)
+        return eng.n_devices, eng.frag_devices, eng.mesh.shape, eng.max_lanes
+
+    lanes = cfg.device_lanes
+    assert pick(n_devices=2) == (1, 1, (1, 1), lanes)      # one local CPU
+    assert pick(frag_devices=2) == (1, 1, (1, 1), lanes)
+    assert pick(four, n_devices=16) == (4, 1, (4, 1), 4 * lanes)
+    assert pick(four) == (4, 1, (4, 1), 4 * lanes)
+    # s_cap = 152 slots > 128 lanes: the frag axis takes every device
+    assert pick(four, device_lanes=128) == (4, 4, (1, 4), 512)
+    assert pick(four, device_lanes=128, n_devices=2) == (2, 2, (1, 2), 256)
+    assert pick(four, frag_devices=2) == (4, 2, (2, 2), 4 * lanes)
     with pytest.raises(ValueError):
         from_reference({**dataclasses.asdict(cfg), "extra_knob": 1})
