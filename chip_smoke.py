@@ -57,16 +57,23 @@ consent_tpu).  Phases, each failing the run by raising:
      draft.
   8. mesh (parallel/mesh.py), proven on shards of one card: (1)
      sharded_consensus_step at the correct shape (B = 256, S = 16, 2
-     rounds, warm 0.25) over [cuda:0] x 4 at frag 1, 2 and 4, byte-equal
-     to the one-device call, and the frag-4 split and all-reduce timed;
-     (2, inside the main phase) the profiled 1,024-read chunk through
-     process_piles on [cuda:0] x 2 (data axis, captured calls), and on
-     every card when there are more, FASTA bytes equal to the one-device
-     run's; (3) the deep-pile cell on [cuda:0] x 4 at frag 4 and with
-     frag chosen automatically (device_lanes 128 < s_cap 152), bytes
-     equal to the one-device run's.  Each part's launch counters are set
-     to 0 just before it and read just after; wall, launches by lane
-     count and replays are printed.
+     rounds, warm 0.25) over [cuda:0] x 4 at frag 1, 2 and 4 op by op,
+     byte-equal to the one-device call; at frag 2 and 4 the captured
+     frag call (each data row's chain of phase-A and phase-B graphs)
+     from poisoned graph memory, byte-equal to the one-device and the
+     op-by-op calls, then eager against graph in turns; the frag-4
+     split and all-reduce timed; (2, inside the main phase) the
+     profiled 1,024-read chunk through process_piles on [cuda:0] x 2
+     (data axis, captured calls), and on every card when there are
+     more, FASTA bytes equal to the one-device run's; (3) the deep-pile
+     cell on [cuda:0] x 4 at frag 4 and with frag chosen automatically
+     (device_lanes 128 < s_cap 152), with captured calls and op by op,
+     bytes equal to the one-device run's.  Each run's launch counters
+     are set to 0 just before it and read just after; wall, launches by
+     lane count, replays by kind and by frag shard, and the banded
+     kernel's eager launches (outside any capture) are printed; runs on
+     captured calls must make no eager banded launch, and frag runs
+     must replay graphs on every shard.
   9. a detail JSON line, one JSON line of per-kernel results, the card
      line, and the final {"ok": true, "device": ...} line.
 
@@ -514,8 +521,9 @@ def phase_repairs(rng):
 
 def poison_graph_memory(dev, byte=0xA5):
     """Every byte of the device's graph pool and of every captured
-    call's static input set to `byte`: a replay that read memory no
-    kernel of it wrote would now change its output."""
+    call's static tensors (its input; a frag chain's every buffer kept
+    from one replay to the next) set to `byte`: a replay that read
+    memory no kernel of its call wrote would now change its output."""
     import torch
 
     from consent_tpu_torch.ops import graphs as graph_ops
@@ -527,7 +535,9 @@ def poison_graph_memory(dev, byte=0xA5):
         torch.empty(0, dtype=torch.uint8, device=dev).set_(storage).fill_(byte)
         total += n
     for call in graph_ops.calls().values():
-        call.static_in.fill_(byte)
+        # a frag chain's static partials, sums, templates and output too
+        for t in call.static_tensors():
+            t.view(torch.uint8).fill_(byte)
     torch.cuda.synchronize()
     return total
 
@@ -1128,37 +1138,73 @@ def fasta_bytes(records):
 
 def mesh_run(tag, fn, need):
     """fn() with the launch counters set to 0 just before and read just
-    after: (result, wall s, launches by lane count, graph replays);
+    after: (result, info) with the wall s, launches by lane count, graph
+    replays by kind and by frag shard ("row,k"), and the banded kernel's
+    eager launches (made outside any capture and not by a replay);
     every kernel in `need` must have launched."""
     import torch
 
     from consent_tpu_torch.ops import cuda_align
     from consent_tpu_torch.ops import graphs as graph_ops
 
-    before = graph_ops.stats()["by_kind"]
+    before = graph_ops.stats()
     cuda_align.reset_launch_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     hist = cuda_align.lane_histogram()
-    replays = {k: v["replays"] for k, v in graph_delta(before).items()}
+    eager = cuda_align.eager_launch_counts()["banded_posterior"]
+    replays = {k: v["replays"] for k, v in
+               graph_delta(before["by_kind"]).items()}
+    was = before["frag_shard_replays"]
+    shard_replays = {k: n - was.get(k, 0) for k, n in
+                     graph_ops.stats()["frag_shard_replays"].items()
+                     if n - was.get(k, 0)}
     for name in need:
         if not hist[name]:
             raise AssertionError(f"[mesh] {tag}: kernel {name} never "
                                  f"launched")
     log(f"[mesh] {tag}: {wall:.3f} s, launches by lane count {hist}, "
-        f"replays {replays}")
-    return out, wall, hist, replays
+        f"replays {replays}, frag graph replays by shard {shard_replays}, "
+        f"eager banded launches {eager}")
+    return out, dict(wall_s=wall, launches=hist, replays=replays,
+                     shard_replays=shard_replays, eager_banded=eager)
+
+
+def graph_run(tag, fn, need, shards):
+    """mesh_run of a run on captured calls: no banded launch may be made
+    eagerly, and with `shards` (frag shard labels "row,k") every shard
+    must have replayed graphs."""
+    out, info = mesh_run(tag, fn, need)
+    if info["eager_banded"]:
+        raise AssertionError(f"[mesh] {tag}: {info['eager_banded']} eager "
+                             f"banded launches outside the graphs")
+    missing = [k for k in shards if not info["shard_replays"].get(k)]
+    if missing:
+        raise AssertionError(f"[mesh] {tag}: no frag replays on shards "
+                             f"{missing}")
+    return out, info
+
+
+def frag_labels(mesh):
+    """Every frag shard of a mesh, as graphs.stats() labels them."""
+    nd, nf = mesh.shape
+    return [f"{d},{k}" for d in range(nd) for k in range(nf)]
 
 
 def phase_mesh(rng, shards=None):
     """Mesh part 1: sharded_consensus_step at the correct shape (B =
     256 windows, S = 16 slots, 2 rounds, warm 0.25, banded aligner,
     packed fragments, assembled output) over `shards` (default [cuda:0]
-    x 4) at frag 1, 2 and len(shards), each byte-equal to the one-device
-    call on the first shard's card; then, at the widest frag axis, the
-    split (put_batch) and the sum of the shards' partials timed."""
+    x 4) at frag 1, 2 and len(shards) op by op, each byte-equal to the
+    one-device call on the first shard's card; at frag 2 and
+    len(shards) the captured call too (each data row's frag chain),
+    replayed from poisoned graph memory, byte-equal to the one-device
+    and the op-by-op calls, with no eager banded launch and frag replays
+    on every shard; then eager against graph in turns (eager, graph,
+    graph, eager); then, at the widest frag axis, the split (put_batch)
+    and the sum of the shards' partials timed."""
     import torch
 
     from consent_tpu_torch.config import correct_preset
@@ -1178,33 +1224,79 @@ def phase_mesh(rng, shards=None):
                                dev).result()
     pk, frag_len, tpl, tpl_len, d0 = arrays
     out = dict(B=B, S=S, rounds=eng.rounds, by_frag={})
+    eager_line = {}
     for nf in sorted({1, 2, nf_max}):
         mesh = mesh_mod.make_mesh(shards, frag_axis=nf)
 
-        def step():
-            cons, lens = mesh_mod.sharded_consensus_step(
+        def step(graphs=False):
+            res = mesh_mod.sharded_consensus_step(
                 mesh, pk, frag_len, tpl, tpl_len, S=S,
                 min_column_support=cfg.min_column_support,
                 scoring=eng.scoring, frag_d0=d0, packed=True,
                 frags_packed=True, rounds=eng.rounds, assemble_out=True,
-                warm_frac=cfg.warm_frac)
-            return torch.cat([cons, cons_ops._bytes32(lens[:, None])], 1)
+                warm_frac=cfg.warm_frac, graphs=graphs)
+            if graphs:
+                return res.result()
+            cons, lens = res
+            return torch.cat([cons, cons_ops._bytes32(lens[:, None])],
+                             1).numpy()
 
         step()                                            # warm-up
-        got, wall, hist, _ = mesh_run(
-            f"part 1: sharded_consensus_step, mesh {mesh.shape}", step,
-            ["banded_posterior"])
-        if not np.array_equal(got.numpy(), want):
+        got, info = mesh_run(
+            f"part 1: sharded_consensus_step op by op, mesh {mesh.shape}",
+            step, ["banded_posterior"])
+        if not np.array_equal(got, want):
             raise AssertionError(f"[mesh] frag {nf}: sharded consensus "
                                  f"differs from the one-device call")
-        out["by_frag"][nf] = dict(mesh=mesh.shape, wall_ms=wall * 1e3,
-                                  launches=hist["banded_posterior"])
+        res = dict(mesh=mesh.shape, wall_ms=info["wall_s"] * 1e3,
+                   launches=info["launches"]["banded_posterior"])
+        eager_line[f"frag {nf} op by op"] = info["eager_banded"]
+        if nf > 1:
+            g0 = graph_ops.stats()
+            t0 = time.perf_counter()
+            step(graphs=True)                             # captures
+            capture_s = time.perf_counter() - t0
+            g1 = graph_ops.stats()
+            poisoned = sum(poison_graph_memory(d)
+                           for d in dict.fromkeys(shards))
+            got_g, ginfo = graph_run(
+                f"part 1: captured frag call, mesh {mesh.shape}",
+                lambda: step(graphs=True), ["banded_posterior"],
+                frag_labels(mesh))
+            if got_g.dtype != want.dtype or not np.array_equal(got_g, want) \
+                    or not np.array_equal(got_g, got):
+                raise AssertionError(f"[mesh] frag {nf}: captured call "
+                                     f"differs from the one-device or the "
+                                     f"op-by-op call")
+            eager_line[f"frag {nf} graph"] = ginfo["eager_banded"]
+            turns = []
+            for mode in ("eager", "graph", "graph", "eager"):
+                turns.append((mode, wall_ms(
+                    lambda: step(graphs=mode == "graph"), 10)))
+            log(f"[mesh] part 1: frag {nf} captured in {capture_s:.3f} s "
+                f"({g1['graphs'] - g0['graphs']} graphs, static bytes "
+                f"{g1['static_bytes']}, pool bytes {g1['pool_bytes']}); "
+                f"byte-equal to the one-device and op-by-op calls from "
+                f"{poisoned} poisoned bytes; in turns: "
+                + ", ".join(f"{m} {ms:.3f} ms" for m, ms in turns))
+            res.update(capture_s=capture_s,
+                       graphs=g1["graphs"] - g0["graphs"],
+                       static_bytes=g1["static_bytes"],
+                       pool_bytes=g1["pool_bytes"], poisoned_bytes=poisoned,
+                       graph_launches=ginfo["launches"]["banded_posterior"],
+                       shard_replays=ginfo["shard_replays"], turns=turns,
+                       eager_ms=[ms for m, ms in turns if m == "eager"],
+                       graph_ms=[ms for m, ms in turns if m == "graph"])
+        out["by_frag"][nf] = res
+    log(f"[mesh] part 1: eager banded launches outside the graphs "
+        f"{eager_line}")
+    out["eager_banded"] = eager_line
 
     # the widest frag axis's split and all-reduce alone
     mesh = mesh_mod.make_mesh(shards, frag_axis=nf_max)
     specs = [("data", "frag", None), ("data", "frag"), ("data", None),
              ("data",), ("data", "frag")]
-    with mesh_mod.work_streams(shards):
+    with graph_ops.work_streams(shards):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         row = mesh_mod.put_batch(mesh, arrays, specs)[0]
@@ -1233,9 +1325,10 @@ def phase_mesh(rng, shards=None):
 
 def mesh_chunk(piles, index, cfg, want_records):
     """Mesh part 2: the correct workload's profiled 1,024-read chunk
-    through process_piles on [cuda:0] x 2 (data axis, captured calls),
-    and on every card when there are more than one: the FASTA bytes
-    equal the one-device run's."""
+    through process_piles on [cuda:0] x 2 (data axis, captured calls,
+    captured before the counters are reset), and on every card when
+    there are more than one: the FASTA bytes equal the one-device
+    run's, and no banded launch is eager."""
     import torch
 
     from consent_tpu_torch.pipeline import engine
@@ -1248,30 +1341,37 @@ def mesh_chunk(piles, index, cfg, want_records):
                      [torch.device("cuda", i) for i in range(n)]))
     out = {}
     for tag, devs in runs:
-        recs, wall, hist, replays = mesh_run(
+        engine.ConsensusEngine(cfg, devices=devs)         # captures
+        recs, info = graph_run(
             f"part 2: chunk of {len(piles)} piles on {tag}",
             lambda: list(engine.process_piles(iter(piles), index, cfg,
                                               devices=devs)),
-            ["banded_posterior", "full_posterior"])
+            ["banded_posterior", "full_posterior"], [])
         if fasta_bytes(recs) != want:
             raise AssertionError(f"[mesh] chunk on {tag}: FASTA differs "
                                  f"from the one-device run")
-        out[tag] = dict(wall_s=wall, launches=hist, replays=replays,
-                        bytes=len(want))
+        out[tag] = dict(info, bytes=len(want))
+    log(f"[mesh] part 2: eager banded launches outside the graphs "
+        f"{ {tag: r['eager_banded'] for tag, r in out.items()} }")
     return out
 
 
 def mesh_deep(deep, shards=None):
     """Mesh part 3: the deep-pile cell through process_piles on
     `shards` (default [cuda:0] x 4) with every shard on the frag axis,
-    set and chosen automatically (device_lanes 128 < s_cap 152): the
-    FASTA bytes equal the one-device run's."""
+    set and chosen automatically (device_lanes 128 < s_cap 152), each
+    with captured calls (the engine's default: every data row's frag
+    chains, captured when the engine is built, before the counters are
+    reset) and op by op (graphs=False): the FASTA bytes equal the
+    one-device run's; the graph runs make no eager banded launch and
+    replay graphs on every frag shard."""
     import dataclasses
 
     import torch
 
     from consent_tpu_torch.config import polish_preset
     from consent_tpu_torch.io.fasta import ReadIndex
+    from consent_tpu_torch.ops import graphs as graph_ops
     from consent_tpu_torch.overlap import minimizer as mz
     from consent_tpu_torch.pipeline import engine
 
@@ -1288,28 +1388,49 @@ def mesh_deep(deep, shards=None):
                                          mz.OverlapParams(), cfg.max_support))
     shards = shards or [torch.device("cuda", 0)] * MESH_SHARDS
     card = shards[:1]
-    one, wall1, _, _ = mesh_run(
+    engine.ConsensusEngine(cfg, devices=card)             # captures
+    one, info1 = graph_run(
         "part 3: deep cell on one card",
         lambda: list(engine.process_piles(iter(piles), index, cfg,
                                           devices=card)),
-        ["banded_posterior"])
+        ["banded_posterior"], [])
     want = fasta_bytes(one)
     devs, nf = shards, len(shards)
-    out = dict(one_card_wall_s=wall1, bytes=len(want))
+    out = {"one card": info1, "bytes": len(want)}
+    eager_line = {"one card": info1["eager_banded"]}
     for tag, c in ((f"frag {nf}", dataclasses.replace(cfg, frag_devices=nf)),
                    ("frag auto", dataclasses.replace(cfg, device_lanes=128))):
-        eng = engine.ConsensusEngine(c, devices=devs, graphs=False)
+        g0 = graph_ops.stats()
+        t0 = time.perf_counter()
+        eng = engine.ConsensusEngine(c, devices=devs)     # captures
+        capture_s = time.perf_counter() - t0
+        g1 = graph_ops.stats()
         if eng.mesh.shape != (1, nf):
             raise AssertionError(f"[mesh] deep {tag}: mesh {eng.mesh.shape}")
-        recs, wall, hist, replays = mesh_run(
-            f"part 3: deep cell, {tag}, mesh {eng.mesh.shape}",
-            lambda: list(engine.process_piles(iter(piles), index, c,
-                                              devices=devs)),
-            ["banded_posterior"])
-        if fasta_bytes(recs) != want:
-            raise AssertionError(f"[mesh] deep {tag}: FASTA differs from "
-                                 f"the one-device run")
-        out[tag] = dict(wall_s=wall, launches=hist, replays=replays)
+        for graphs in (True, False):
+            mode = "graph" if graphs else "op by op"
+            run = mesh_run if not graphs else (
+                lambda t, f, n: graph_run(t, f, n, frag_labels(eng.mesh)))
+            recs, info = run(
+                f"part 3: deep cell, {tag}, mesh {eng.mesh.shape}, {mode}",
+                lambda: list(engine.process_piles(iter(piles), index, c,
+                                                  devices=devs,
+                                                  graphs=graphs)),
+                ["banded_posterior"])
+            if fasta_bytes(recs) != want:
+                raise AssertionError(f"[mesh] deep {tag} {mode}: FASTA "
+                                     f"differs from the one-device run")
+            out[f"{tag} {mode}"] = info
+            eager_line[f"{tag} {mode}"] = info["eager_banded"]
+        out[f"{tag} capture"] = dict(
+            capture_s=capture_s, graphs=g1["graphs"] - g0["graphs"],
+            static_bytes=g1["static_bytes"], pool_bytes=g1["pool_bytes"])
+        log(f"[mesh] part 3: {tag} captured {g1['graphs'] - g0['graphs']} "
+            f"graphs in {capture_s:.3f} s; static bytes "
+            f"{g1['static_bytes']}, pool bytes {g1['pool_bytes']}")
+    log(f"[mesh] part 3: eager banded launches outside the graphs "
+        f"{eager_line}")
+    out["eager_banded"] = eager_line
     return out
 
 

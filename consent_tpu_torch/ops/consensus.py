@@ -563,48 +563,80 @@ class SlotShard(NamedTuple):
     frag_d0: torch.Tensor | None  # [B, S] int32
 
 
+def frag_warm_slots(S_global: int, warm_frac: float, warm: bool):
+    """The global slot count a frag shard's round realigns: Sw for a
+    warm round, None (every slot) otherwise."""
+    return _warm_slots(S_global, warm_frac) if warm and warm_frac < 1.0 \
+        else None
+
+
+def frag_phase_a(frags, frag_len, tpl, tpl_len, frag_d0, *, S, k,
+                 warm_slots, scoring) -> VotePartials:
+    """Phase A of one frag shard's round: shard k's S local slots (global
+    slots k*S .. k*S + S - 1) against the round's template.  A warm
+    round (warm_slots = Sw) zeroes the lengths of global slots >= Sw
+    instead of slicing (an empty slot adds nothing: the same votes as
+    the one-device path's slice), and every local slot still runs the
+    aligner.  k and Sw are static; no host sync."""
+    if warm_slots is not None:
+        slot = k * S + torch.arange(S, device=frag_len.device)[None, :]
+        frag_len = torch.where(slot < warm_slots, frag_len, 0)
+    return consensus_partials(frags, frag_len, tpl, tpl_len, S=S,
+                              scoring=scoring, frag_d0=frag_d0)
+
+
+def frag_phase_b_next(total: VotePartials, tpl, tpl_len, *, Lt,
+                      min_column_support):
+    """Phase B of a middle round on one shard: the summed partials
+    against the round's template; the next round's template [B, Lt]
+    uint8 and its lengths [B] int32."""
+    v = consensus_from_partials(total, tpl, tpl_len,
+                                min_column_support=min_column_support)
+    return assemble_template_device(v, tpl_len, Lt)
+
+
+def frag_phase_b_last(total: VotePartials, tpl, tpl_len, *, Lt,
+                      min_column_support) -> torch.Tensor:
+    """Phase B of the last round: the summed partials against the
+    round's template, assembled and 2-bit packed, in
+    consensus_votes_wire's assemble_out layout [B, Lt//4 + 4] uint8."""
+    v = consensus_from_partials(total, tpl, tpl_len,
+                                min_column_support=min_column_support)
+    return _assembled_wire(v, tpl_len, Lt)
+
+
 def consensus_votes_rounds_frag(
     shards: Sequence[SlotShard], *, S, rounds, min_column_support, scoring,
     warm_frac: float = 1.0,
 ) -> list:
     """consensus_votes_rounds with each window's slots split over
     frag shards (S local slots each, shard k holding global slots
-    k*S .. k*S + S - 1): every round runs phase A on each shard, adds
-    the shards' partials in shard order and copies the sums back to each
-    shard, where phase B and the next template follow, so every shard
-    assembles the same template.  A warm round zeroes the lengths of
-    global slots >= Sw instead of slicing (an empty slot adds nothing:
-    the same votes), and every local slot still runs the aligner.
-    Returns [(WindowVotes, final template lengths)] per shard, all
-    equal."""
+    k*S .. k*S + S - 1): every round runs phase A on each shard
+    (frag_phase_a), adds the shards' partials in shard order and copies
+    the sums back to each shard, where phase B and the next template
+    follow (frag_phase_b_next), so every shard assembles the same
+    template.  Returns [(WindowVotes, final template lengths)] per
+    shard, all equal.  The captured frag call (ops/graphs.py:
+    FragChain) chains the same functions in the same order."""
     S_global = S * len(shards)
     Lt = shards[0].tpl.shape[1]
     tpls = [(sh.tpl, sh.tpl_len) for sh in shards]
     n_rounds = max(1, rounds)
     for rd in range(n_rounds):
-        warm = rd < n_rounds - 1 and warm_frac < 1.0
-        parts = []
-        for k, sh in enumerate(shards):
-            fl = sh.frag_len
-            if warm:
-                slot = k * S + torch.arange(S, device=fl.device)[None, :]
-                fl = torch.where(slot < _warm_slots(S_global, warm_frac),
-                                 fl, 0)
-            parts.append(consensus_partials(
-                sh.frags, fl, *tpls[k], S=S, scoring=scoring,
-                frag_d0=sh.frag_d0))
-        total = sum_partials(parts)
-        votes = [
-            consensus_from_partials(
-                VotePartials(*(x.to(tp.device, non_blocking=True)
-                               for x in total)),
-                tp, tl, min_column_support=min_column_support)
-            for tp, tl in tpls
-        ]
+        Sw = frag_warm_slots(S_global, warm_frac, rd < n_rounds - 1)
+        total = sum_partials([
+            frag_phase_a(sh.frags, sh.frag_len, *tpls[k], sh.frag_d0, S=S,
+                         k=k, warm_slots=Sw, scoring=scoring)
+            for k, sh in enumerate(shards)])
+        local = [VotePartials(*(x.to(tp.device, non_blocking=True)
+                                for x in total)) for tp, _ in tpls]
         if rd < n_rounds - 1:
-            tpls = [assemble_template_device(v, tl, Lt)
-                    for v, (_, tl) in zip(votes, tpls)]
-    return [(v, tl) for v, (_, tl) in zip(votes, tpls)]
+            tpls = [frag_phase_b_next(p, tp, tl, Lt=Lt,
+                                      min_column_support=min_column_support)
+                    for p, (tp, tl) in zip(local, tpls)]
+    return [(consensus_from_partials(p, tp, tl,
+                                     min_column_support=min_column_support),
+             tl) for p, (tp, tl) in zip(local, tpls)]
 
 
 class PackedVotes(NamedTuple):
@@ -735,6 +767,52 @@ def pack_bases_device(codes: torch.Tensor) -> torch.Tensor:
     )
 
 
+def wire_row_bytes(S: int, Pb: int, Lt: int) -> int:
+    """Bytes of one window's row of wire_encode_inputs' layout."""
+    return S * Pb + 4 * S + Lt + 4 + 4 * S
+
+
+def wire_split(buf: torch.Tensor, *, S: int, Pb: int, Lt: int):
+    """Device inverse of wire_encode_inputs: (frags [B, S, 4 Pb] codes,
+    frag_len [B, S], tpl [B, Lt], tpl_len [B], frag_d0 [B, S])."""
+    B = buf.shape[0]
+    frags = unpack_bases(buf[:, : S * Pb].reshape(B, S, Pb), Pb * 4)
+    o = S * Pb
+    frag_len = _bitcast32(buf[:, o : o + 4 * S])
+    tpl, tpl_len = wire_template(buf, S=S, Pb=Pb, Lt=Lt)
+    o += 4 * S + Lt + 4
+    frag_d0 = _bitcast32(buf[:, o : o + 4 * S])
+    return frags, frag_len, tpl, tpl_len, frag_d0
+
+
+def wire_template(buf: torch.Tensor, *, S: int, Pb: int, Lt: int):
+    """The template [B, Lt] and its lengths [B] of a wire buffer."""
+    o = S * Pb + 4 * S
+    return buf[:, o : o + Lt], _bitcast32(buf[:, o + Lt : o + Lt + 4])[:, 0]
+
+
+def partials_spec(B: int, W: int) -> VotePartials:
+    """(shape, dtype) of each field of a window batch's VotePartials."""
+    K = INS_CAP
+    i16 = torch.int16
+    bw = ((B, W), i16)
+    bwk = ((B, W, K), i16)
+    return VotePartials(
+        ((B, W, 4), i16), bw, bw, bw, bw, bwk, ((B, W, K, 4), i16), bw,
+        bwk, bwk, ((B,), I32), ((B, K), I32), ((B, K, 4), I32),
+        ((B,), I32), ((B, K), I32), ((B, K, 4), I32))
+
+
+def _assembled_wire(votes: WindowVotes, w_len: torch.Tensor, Lt: int
+                    ) -> torch.Tensor:
+    """The final consensus assembled on the device: [B, Lt//4 + 4] u8,
+    2-bit-packed codes then the int32 length."""
+    cons, cons_len = assemble_template_device(votes, w_len, Lt)
+    return torch.cat(
+        [pack_bases_device(cons), _bytes32(cons_len[:, None])], dim=1
+    )
+
+
 def consensus_votes_wire(
     buf: torch.Tensor,  # [B, S*Pb + 4S + Lt + 4 + 4S] uint8
     *,
@@ -754,18 +832,8 @@ def consensus_votes_wire(
     assemble_out=True (the production path) also assembles the final
     consensus on the device and returns only its 2-bit-packed codes +
     length — [B, Lt//4 + 4] bytes instead of [B, 7*Lt + 20]."""
-    B = buf.shape[0]
-    o = 0
-    frags = unpack_bases(buf[:, : S * Pb].reshape(B, S, Pb), Pb * 4)
-    o += S * Pb
-    frag_len = _bitcast32(buf[:, o : o + 4 * S])
-    o += 4 * S
-    tpl = buf[:, o : o + Lt]
-    o += Lt
-    tpl_len = _bitcast32(buf[:, o : o + 4])[:, 0]
-    o += 4
-    frag_d0 = _bitcast32(buf[:, o : o + 4 * S])
-
+    frags, frag_len, tpl, tpl_len, frag_d0 = wire_split(buf, S=S, Pb=Pb,
+                                                        Lt=Lt)
     votes, w_len = consensus_votes_rounds(
         frags, frag_len, tpl, tpl_len, S=S, rounds=rounds,
         min_column_support=min_column_support, scoring=scoring,
@@ -773,10 +841,7 @@ def consensus_votes_wire(
     )
 
     if assemble_out:
-        cons, cons_len = assemble_template_device(votes, w_len, Lt)
-        return torch.cat(
-            [pack_bases_device(cons), _bytes32(cons_len[:, None])], dim=1
-        )
+        return _assembled_wire(votes, w_len, Lt)
 
     return torch.cat(
         [

@@ -80,6 +80,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 # launches by lane count N, per kernel
 _lane_hist: Dict[str, Dict[int, int]] = {name: {} for name in KERNELS}
+# launches made eagerly (a wrapper run outside `recording`), per kernel:
+# no graph replay and no capture counts here
+_eager: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -135,10 +138,18 @@ def lane_histogram() -> Dict[str, Dict[int, int]]:
                 for name, h in _lane_hist.items()}
 
 
+def eager_launch_counts() -> Dict[str, int]:
+    """Launches each wrapper made eagerly since the last reset: outside
+    a capture, and not as part of a graph's replay."""
+    with _lock:
+        return dict(_eager)
+
+
 def reset_launch_counts() -> None:
     with _lock:
         for name in _launches:
             _launches[name] = 0
+            _eager[name] = 0
             _lane_hist[name].clear()
 
 
@@ -171,6 +182,8 @@ def _count(name: str, lanes: int) -> None:
         rec.append((name, lanes))
         return
     add_launches([(name, lanes)])
+    with _lock:
+        _eager[name] += 1
 
 
 def scan_window(max_hgap: int, width: int) -> int:

@@ -11,10 +11,13 @@ the JAX package drives all local devices from one process:
     replay of the call captured for its shape (ops/graphs.py);
   * `frag` — the fragment slots of each window split over devices; the
     vote reductions become sums of the shards' partials: phase A
-    (ops/consensus.py: consensus_partials) on each shard, the partials
-    added in shard order on the data row's first shard and copied back
-    to every shard, phase B there (consensus_votes_rounds_frag).  These
-    calls run op by op.
+    (ops/consensus.py: frag_phase_a) on each shard, the partials added
+    in shard order on the data row's first shard and copied back to
+    every shard, phase B there (consensus_votes_rounds_frag).  On a
+    card each data row's call is a chain of captured graphs
+    (ops/graphs.py: FragChain): each shard's slots travel as one wire
+    buffer, and the result comes back as the data axis's does
+    (sharded_frag_wire_step); graphs=False and the CPU run it op by op.
 
 A device list may repeat a device, as the JAX package's tests run on
 XLA's virtual host devices: shards of one card, or of the CPU.  Every
@@ -24,7 +27,6 @@ work stream (ops/graphs.py).
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import List, Optional, Sequence, Tuple
 
@@ -91,18 +93,6 @@ def make_mesh(devices: Optional[Sequence] = None, frag_axis: int = 1) -> Mesh:
 def make_data_mesh(devices: Optional[Sequence] = None) -> Mesh:
     """Data-only mesh over `devices` (the engine's mesh)."""
     return make_mesh(devices, frag_axis=1)
-
-
-@contextlib.contextmanager
-def work_streams(devices: Sequence[torch.device]):
-    """Every card of `devices` with its work stream current (a copy
-    between two cards orders itself after the current streams of both)."""
-    with contextlib.ExitStack() as stack:
-        for dev in dict.fromkeys(devices):
-            if dev.type == "cuda":
-                stack.enter_context(
-                    torch.cuda.stream(graph_ops.work_stream(dev)))
-        yield
 
 
 def _split(n: int, parts: int, i: int, what: str) -> slice:
@@ -195,6 +185,7 @@ def sharded_consensus_step(
     rounds: int = 1,
     assemble_out: bool = False,
     warm_frac: float = 1.0,
+    graphs: bool = False,
 ):
     """One device-parallel consensus step: the window batch split over
     `data`, fragment slots over `frag` (the vote reductions become sums
@@ -204,17 +195,33 @@ def sharded_consensus_step(
     JAX package's structure: WindowVotes, or PackedVotes with
     packed=True; with rounds > 1, (votes, final template lengths);
     with assemble_out, the 2-bit-packed assembled consensus and its
-    lengths."""
+    lengths.
+
+    graphs=True on a card mesh with a frag axis replays each data row's
+    captured frag chain instead (sharded_frag_wire_step) and returns a
+    graphs.Joined of the assembled consensus in consensus_votes_wire's
+    assemble_out layout; it takes host arrays, packed fragments and
+    assemble_out=True only.  On the CPU graphs is ignored."""
     nd, nf = mesh.shape
     if S % nf:
         raise ValueError(f"S={S} does not split into {nf} frag shards")
+    if graphs and nf > 1 and mesh.grid[0][0].type == "cuda":
+        if not (assemble_out and frags_packed):
+            raise ValueError("captured frag calls take packed fragments "
+                             "and return the assembled consensus")
+        d0 = (np.zeros(frag_len.shape, np.int32) if frag_d0 is None
+              else frag_d0)
+        return sharded_frag_wire_step(
+            mesh, frags, frag_len, tpl, tpl_len, d0, S=S, Lt=tpl.shape[1],
+            min_column_support=min_column_support, scoring=scoring,
+            rounds=rounds, warm_frac=warm_frac)
     frag = "frag" if nf > 1 else None
     specs = [("data", frag, None), ("data", frag), ("data", None), ("data",)]
     arrays = [frags, frag_len, tpl, tpl_len]
     if frag_d0 is not None:
         specs.append(("data", frag))
         arrays.append(frag_d0)
-    with work_streams(mesh.devices()):
+    with graph_ops.work_streams(mesh.devices()):
         grid = put_batch(mesh, arrays, specs)
         rows = []
         for row in grid:
@@ -228,6 +235,60 @@ def sharded_consensus_step(
                                   scoring, rounds, assemble_out, packed,
                                   warm_frac))
         return _gather(rows)
+
+
+def frag_wire_bufs(mesh: Mesh, frags_packed: np.ndarray,
+                   frag_len: np.ndarray, tpl: np.ndarray,
+                   tpl_len: np.ndarray, frag_d0: np.ndarray
+                   ) -> List[List[np.ndarray]]:
+    """Host: grid[d][k] = shard (d, k)'s wire buffer (wire_encode_inputs'
+    layout): data row d's windows, frag shard k's S/nf slots of each,
+    and the windows' templates."""
+    nd, nf = mesh.shape
+    B, S = frag_len.shape
+    out = []
+    for d in range(nd):
+        rows = _split(B, nd, d, "window batch")
+        out.append([])
+        for k in range(nf):
+            sl = (rows, _split(S, nf, k, "frag"))
+            out[-1].append(cons_ops.wire_encode_inputs(
+                frags_packed[sl], frag_len[sl], tpl[rows], tpl_len[rows],
+                frag_d0[sl]))
+    return out
+
+
+def sharded_frag_wire_step(mesh: Mesh, frags_packed, frag_len, tpl, tpl_len,
+                           frag_d0, *, S, Lt, min_column_support, scoring,
+                           rounds=1, warm_frac=1.0) -> graph_ops.Joined:
+    """The frag-axis consensus call on a card mesh (the engine's deep-pile
+    path): each data row's shards take their wire buffers
+    (frag_wire_bufs), staged through pinned memory, and the row's call
+    is a replay of its captured frag chain (ops/graphs.py: FragChain).
+    Returns the rows' assembled consensus, joined on the host in row
+    order, when read (graphs.Joined)."""
+    nd, nf = mesh.shape
+    Pb = frags_packed.shape[-1]
+    parts = []
+    for d, bufs in enumerate(frag_wire_bufs(mesh, frags_packed, frag_len,
+                                            tpl, tpl_len, frag_d0)):
+        parts.append(frag_call(mesh, d, S // nf, bufs[0].shape[0], Pb, Lt,
+                               min_column_support, scoring, rounds,
+                               warm_frac)(bufs))
+    return graph_ops.Joined(parts)
+
+
+def frag_call(mesh: Mesh, d: int, S: int, B: int, Pb: int, Lt: int,
+              min_column_support, scoring, rounds, warm_frac
+              ) -> graph_ops.FragChain:
+    """Data row d's captured frag chain for S local slots and B windows
+    a shard (captured at first use)."""
+    return graph_ops.frag_chain(
+        wire_key(S, B, Pb, Lt, min_column_support, scoring, rounds, True,
+                 warm_frac),
+        mesh.grid[d], B, row=d, S=S, Pb=Pb, Lt=Lt,
+        min_column_support=min_column_support, scoring=scoring,
+        rounds=rounds, warm_frac=warm_frac)
 
 
 def wire_key(S, B, Pb, Lt, min_column_support, scoring, rounds,

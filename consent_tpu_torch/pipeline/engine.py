@@ -14,10 +14,11 @@ emitted in input pile order.
 The engine runs on a mesh of devices (parallel/mesh.py): "cuda" (the
 default) is every local card, runs the CUDA kernels and raises when
 there is no card; "cpu" runs the kernels' plain PyTorch versions.  On
-the card every consensus call of the data axis is a replay of a CUDA
-graph captured once per shard shape (ops/graphs.py), as the JAX package
-jits it once per static shape; `graphs=False` runs the calls op by op
-instead, for comparison only.
+the card every consensus call is a replay of CUDA graphs captured once
+per shard shape (ops/graphs.py), as the JAX package jits it once per
+static shape: on the data axis one graph per shard, over a frag axis a
+chain of each shard's phase-A and phase-B graphs; `graphs=False` runs
+the calls op by op instead, for comparison only.
 """
 
 from __future__ import annotations
@@ -84,11 +85,13 @@ class ConsensusEngine:
     `frag` axis too when one window's slots (s_cap) exceed one device's
     lane budget (device_lanes) or frag_devices asks for it.
 
-    On the card, every per-shard call shape `run` can dispatch on the
-    data axis (call_shapes) is captured as a CUDA graph on each card of
-    the mesh when the engine is built, before any chain thread runs (a
-    process captures each shape once per card); `graphs=False` keeps
-    the calls eager.  Calls over a frag axis run eagerly."""
+    On the card, every per-shard call shape `run` can dispatch
+    (call_shapes) is captured when the engine is built, before any
+    chain thread runs: on the data axis as a CUDA graph on each card of
+    the mesh (a process captures each shape once per card), over a frag
+    axis as each data row's frag chain (each shard's phase A and phase
+    B, ops/graphs.py: FragChain); `graphs=False` keeps the calls
+    eager."""
 
     def __init__(self, cfg: ConsentConfig, device="cuda", graphs=True,
                  devices: Optional[Sequence] = None):
@@ -131,7 +134,7 @@ class ConsensusEngine:
         self.max_lanes = cfg.device_lanes * self.n_devices
         self.rounds = max(1, cfg.consensus_rounds)
         self.graphs = graphs and self.device.type == "cuda"
-        if self.graphs and self.frag_devices == 1:
+        if self.graphs:
             self._capture_all()
 
     def call_shapes(self) -> Set[Tuple[int, int]]:
@@ -174,20 +177,36 @@ class ConsensusEngine:
         return graph_ops.captured(key, self._wire_fn(S, rounds), (B, row),
                                   device or self.device)
 
+    def _frag_call(self, S: int, B: int, rounds: int, d: int):
+        """Data row d's frag chain for one per-shard call shape."""
+        return mesh_mod.frag_call(self.mesh, d, S, B, self.Lf // 4, self.Lt,
+                                  self.cfg.min_column_support, self.scoring,
+                                  rounds, self.cfg.warm_frac)
+
     def _capture_all(self) -> None:
-        n0 = len(graph_ops.calls())
+        g0 = graph_ops.stats()["graphs"]
         t0 = time.perf_counter()
         shapes = sorted(self.call_shapes())
-        devs = self.mesh.distinct()
-        with STATS.timer("consensus.capture", len(shapes) * len(devs)):
-            for dev in devs:
-                for S, B in shapes:
-                    self._captured(S, B, self.rounds, dev)
-        new = len(graph_ops.calls()) - n0
+        if self.frag_devices > 1:
+            # one chain per data row and shape: every shard's graphs
+            units = [functools.partial(self._frag_call, S, B, self.rounds, d)
+                     for d in range(self.mesh.shape[0]) for S, B in shapes]
+            where = f"{len(self.mesh.grid)} frag row(s) of {self.mesh.shape[1]}"
+        else:
+            units = [functools.partial(self._captured, S, B, self.rounds, dev)
+                     for dev in self.mesh.distinct() for S, B in shapes]
+            where = f"{len(self.mesh.distinct())} device(s)"
+        with STATS.timer("consensus.capture", len(units)):
+            for unit in units:
+                unit()
+        st = graph_ops.stats()
+        new = st["graphs"] - g0
         if new:
-            print(f"[consent_tpu_torch] captured {new} consensus call "
-                  f"shapes of {len(shapes)} on {len(devs)} device(s) in "
-                  f"{time.perf_counter() - t0:.3f} s", file=sys.stderr)
+            print(f"[consent_tpu_torch] captured {new} consensus graphs "
+                  f"for {len(shapes)} call shapes on {where} in "
+                  f"{time.perf_counter() - t0:.3f} s; graph pool bytes "
+                  f"by card {st['pool_bytes']}, frag chains' static bytes "
+                  f"{st['static_bytes']}", file=sys.stderr)
 
     @staticmethod
     def _round128(x: int) -> int:
@@ -298,20 +317,24 @@ class ConsensusEngine:
         over the mesh, enqueued: on the data axis each shard's rows go
         through the one-device call (a captured graph's replay on a
         card, the plain path on the CPU); over a frag axis the slots
-        split too and the call runs op by op.  _fetch_cons waits for
-        the result."""
+        split too, on a card as replays of each row's frag chain.
+        _fetch_cons waits for the result."""
         cfg = self.cfg
         if self.frag_devices > 1:
             # deep-pile geometry: fragment slots split over `frag`, the
             # vote reductions summed over it
-            cons, lens = mesh_mod.sharded_consensus_step(
+            res = mesh_mod.sharded_consensus_step(
                 self.mesh, frags, frag_len, tpl, tpl_len, S=S,
                 min_column_support=cfg.min_column_support,
                 scoring=self.scoring,
                 frag_d0=frag_d0 if self.scoring.band else None,
                 packed=True, frags_packed=True, rounds=rounds,
                 assemble_out=True, warm_frac=cfg.warm_frac,
+                graphs=self.graphs,
             )
+            if self.graphs:
+                return res                  # a Joined, not yet waited on
+            cons, lens = res
             return graph_ops.Pending(torch.cat(
                 [cons, cons_ops._bytes32(lens[:, None])], dim=1))
         buf = cons_ops.wire_encode_inputs(

@@ -7,13 +7,17 @@ card, so the frag axis's partial sums and the copies back cross cards
 and every card replays its own captured calls:
 
   1. sharded_consensus_step (B = 256, S = 16, 2 rounds, warm 0.25) over
-     cuda:0..n-1 at frag 1, 2 and n, byte-equal to the one-card call;
-     the widest frag axis's split and all-reduce timed;
+     cuda:0..n-1 at frag 1, 2 and n op by op, and at frag 2 and n as
+     captured frag chains (the partials copied between cards between
+     replays) from poisoned graph memory, byte-equal to the one-card
+     call, eager against graph in turns; the widest frag axis's split
+     and all-reduce timed;
   2. a correct-shaped chunk (a 400 kb simulation, 10x, 4 kb reads,
      native overlaps, correct_preset) through process_piles on
      [cuda:0] x 2 and on cuda:0..n-1, FASTA bytes equal to one card's;
   3. the deep-pile cell on cuda:0..n-1 with every card on the frag axis,
-     set and chosen automatically, bytes equal to one card's.
+     set and chosen automatically, with captured calls and op by op,
+     bytes equal to one card's.
 
 Needs two cards or more; prints the card line and one JSON line.
 
@@ -61,12 +65,13 @@ def main() -> int:
         for r in reads:
             index.add(r.name, r.codes)
         cfg = correct_preset(n_workers=os.cpu_count())
-        one, wall, _, _ = cs.mesh_run(
+        one, info = cs.mesh_run(
             "part 2: chunk on one card",
             lambda: list(engine.process_piles(iter(piles), index, cfg,
                                               devices=cards[:1])),
             ["banded_posterior", "full_posterior"])
-        res["chunk"] = dict(one_card_wall_s=wall, n_piles=len(piles),
+        res["chunk"] = dict(one_card_wall_s=info["wall_s"],
+                            n_piles=len(piles),
                             **cs.mesh_chunk(piles, index, cfg, one))
         res["deep"] = cs.mesh_deep(cs.deep_inputs(workdir), cards)
     print(json.dumps(res, default=str))

@@ -263,32 +263,41 @@ def test_sharded_stitch_matches_one_shard_and_jax():
         [dataclasses.astuple(s) for s in want]
 
 
-@pytest.mark.parametrize("nd", [2, 8])
-def test_call_shapes_are_the_dispatched_shard_shapes(nd, monkeypatch):
-    """On a data mesh the batch sizes round to the data axis (tail
-    d * ceil(16 / d)) and call_shapes() lists exactly the per-shard
-    shapes run() dispatches."""
+@pytest.mark.parametrize("n, nf, lanes", [
+    pytest.param(2, 1, 160, id="2"),
+    pytest.param(8, 1, 160, id="8"),
+    pytest.param(8, 4, 160, id="8-frag4"),          # (2, 4): frag set
+    pytest.param(4, None, 64, id="4-fragauto"),     # 64 lanes < s_cap 152
+])
+def test_call_shapes_are_the_dispatched_shard_shapes(n, nf, lanes,
+                                                     monkeypatch):
+    """On a mesh the batch sizes round to the data axis (tail
+    d * ceil(16 / d)), the slots split over the frag axis, and
+    call_shapes() lists exactly the per-shard shapes run() dispatches
+    (the shapes the engine captures on a card)."""
     cfg = from_reference(dataclasses.asdict(correct_preset(
-        max_msa=10, device_lanes=160)))
-    eng = t_engine.ConsensusEngine(cfg, devices=["cpu"] * nd)
-    assert eng.mesh.shape == (nd, 1) and eng.max_lanes == 160 * nd
+        max_msa=10, device_lanes=lanes, frag_devices=nf)))
+    eng = t_engine.ConsensusEngine(cfg, devices=["cpu"] * n)
+    nf = nf or n
+    nd = n // nf
+    assert eng.mesh.shape == (nd, nf) and eng.max_lanes == lanes * n
     seen = set()
 
     def record(sub, S, arrays, rounds):
         B = arrays[0].shape[0]
-        assert B % nd == 0 and len(sub) <= B
-        seen.add((S, B // nd))
+        assert B % nd == 0 and S % nf == 0 and len(sub) <= B
+        seen.add((S // nf, B // nd))
 
     monkeypatch.setattr(eng, "_job_chain", record)
     rng = np.random.default_rng(0)
     tasks = []
-    for n in range(1, cfg.max_msa + 2):
-        S = t_engine._bucket_for(n, eng.s_cap)
+    for k in range(1, cfg.max_msa + 2):
+        S = eng._bucket(k)
         for i in range(eng._max_b(S) + 3):
             frags = [rng.integers(0, 4, 12).astype(np.uint8)
-                     for _ in range(n)]
+                     for _ in range(k)]
             tasks.append(t_engine.WindowTask(read_key=i, window_idx=0,
                                              pos=(0, 12), frags=frags))
     eng.run(tasks)
     assert seen == eng.call_shapes()
-    assert all(eng._pad_b(1, eng._max_b(S)) % nd == 0 for S, _ in seen)
+    assert all(eng._pad_b(1, eng._max_b(S * nf)) % nd == 0 for S, _ in seen)
