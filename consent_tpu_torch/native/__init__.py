@@ -14,6 +14,8 @@ from typing import Optional
 
 import numpy as np
 
+from consent_tpu_torch.utils.observe import GLOBAL_STATS as STATS
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "host.cpp")
 _lock = threading.Lock()
@@ -206,10 +208,13 @@ def count_kmers_sparse_native(frag_list, k):
 
 def host_post_window_native(frag_list, cons, k, solid_thresh,
                             max_branches, zone, min_anchors,
-                            bmean_sup):
+                            bmean_sup, status=None):
     """Whole per-window host post chain in ONE native call (counts,
     anchor gate, solidity, DBG polish); returns (codes, solid,
-    SparseCounts), or None when an output capacity check fails."""
+    SparseCounts), or None when an output capacity check fails.
+    `status`, an int32 [1] array, receives host.cpp's status: 0
+    polished, 1 the template kept at the anchor gate, 2 a consensus
+    shorter than k."""
     if not frag_list:
         return None
     lib = get_lib()
@@ -228,7 +233,8 @@ def host_post_window_native(frag_list, cons, k, solid_thresh,
     out_cap = 2 * max(len(cons), int(lens[0])) + 256
     out_c = np.empty(out_cap, dtype=np.uint8)
     out_s = np.empty(out_cap, dtype=np.uint8)
-    status = np.zeros(1, dtype=np.int32)
+    if status is None:
+        status = np.zeros(1, dtype=np.int32)
     n = lib.host_post_window(
         blob, lens, offsets, len(frag_list), cons, len(cons),
         k, solid_thresh, max_branches, zone, min_anchors, bmean_sup,
@@ -243,83 +249,91 @@ def host_post_window_native(frag_list, cons, k, solid_thresh,
 
 def host_post_batch_native(frag_lists, cons_list, bmean_sups, k,
                            solid_thresh, max_branches, zone,
-                           min_anchors):
+                           min_anchors, status=None):
     """Whole host post chain for MANY windows in ONE native call
     (host.cpp host_post_batch); returns a list of (codes, solid,
     SparseCounts), or None when an output capacity check fails.  Per-window
-    results are byte-identical to host_post_window_native."""
+    results are byte-identical to host_post_window_native; `status`
+    (int32, a slot a window) receives their statuses.
+
+    Timed as `host_post.native` (the call, the GIL released) and
+    `host_post.marshal` (packing before it and unpacking after it, the
+    GIL held), each with its thread's CPU seconds (`.cpu`)."""
     lib = get_lib()
     from consent_tpu_torch.core.sparse_counts import SparseCounts
 
-    n_win = len(frag_lists)
-    win_frag_off = np.zeros(n_win + 1, dtype=np.int64)
-    all_frags = []
-    for w, fl in enumerate(frag_lists):
-        all_frags.extend(fl)
-        win_frag_off[w + 1] = len(all_frags)
-    lens = np.array([len(f) for f in all_frags], dtype=np.int64)
-    if len(lens) == 0:
-        lens = np.zeros(0, dtype=np.int64)
-    offsets = np.zeros(len(lens), dtype=np.int64)
-    if len(lens):
-        offsets[1:] = np.cumsum(lens)[:-1]
-    blob = (
-        np.concatenate(
-            [np.ascontiguousarray(f, dtype=np.uint8) for f in all_frags]
+    with STATS.cpu_timer("host_post.marshal"):
+        n_win = len(frag_lists)
+        win_frag_off = np.zeros(n_win + 1, dtype=np.int64)
+        all_frags = []
+        for w, fl in enumerate(frag_lists):
+            all_frags.extend(fl)
+            win_frag_off[w + 1] = len(all_frags)
+        lens = np.array([len(f) for f in all_frags], dtype=np.int64)
+        if len(lens) == 0:
+            lens = np.zeros(0, dtype=np.int64)
+        offsets = np.zeros(len(lens), dtype=np.int64)
+        if len(lens):
+            offsets[1:] = np.cumsum(lens)[:-1]
+        blob = (
+            np.concatenate(
+                [np.ascontiguousarray(f, dtype=np.uint8) for f in all_frags]
+            )
+            if lens.sum()
+            else np.zeros(1, np.uint8)
         )
-        if lens.sum()
-        else np.zeros(1, np.uint8)
-    )
-    cons_off = np.zeros(n_win + 1, dtype=np.int64)
-    for w, c in enumerate(cons_list):
-        cons_off[w + 1] = cons_off[w] + len(c)
-    cons_blob = (
-        np.concatenate(
-            [np.ascontiguousarray(c, dtype=np.uint8) for c in cons_list]
+        cons_off = np.zeros(n_win + 1, dtype=np.int64)
+        for w, c in enumerate(cons_list):
+            cons_off[w + 1] = cons_off[w] + len(c)
+        cons_blob = (
+            np.concatenate(
+                [np.ascontiguousarray(c, dtype=np.uint8) for c in cons_list]
+            )
+            if cons_off[-1]
+            else np.zeros(1, np.uint8)
         )
-        if cons_off[-1]
-        else np.zeros(1, np.uint8)
-    )
-    sup = np.asarray(bmean_sups, dtype=np.int32)
+        sup = np.asarray(bmean_sups, dtype=np.int32)
 
-    keys_cap = int(np.maximum(lens - k + 1, 0).sum())
-    out_cap = 0
-    for w in range(n_win):
-        tpl_len = int(lens[win_frag_off[w]]) if (
-            win_frag_off[w + 1] > win_frag_off[w]
-        ) else 0
-        out_cap += 2 * max(len(cons_list[w]), tpl_len) + 256
-    out_c = np.empty(max(out_cap, 1), dtype=np.uint8)
-    out_s = np.empty(max(out_cap, 1), dtype=np.uint8)
-    out_off = np.zeros(n_win + 1, dtype=np.int64)
-    keys = np.empty(max(keys_cap, 1), dtype=np.int64)
-    vals = np.empty(max(keys_cap, 1), dtype=np.int32)
-    keys_off = np.zeros(n_win + 1, dtype=np.int64)
-    status = np.zeros(max(n_win, 1), dtype=np.int32)
-
-    n = lib.host_post_batch(
-        blob, lens if len(lens) else np.zeros(1, np.int64),
-        offsets if len(offsets) else np.zeros(1, np.int64),
-        win_frag_off, n_win,
-        cons_blob, cons_off,
-        k, solid_thresh, max_branches, zone, min_anchors, sup,
-        out_c, out_s, out_cap, out_off,
-        keys, vals, max(keys_cap, 1), keys_off,
-        status,
-    )
+        keys_cap = int(np.maximum(lens - k + 1, 0).sum())
+        out_cap = 0
+        for w in range(n_win):
+            tpl_len = int(lens[win_frag_off[w]]) if (
+                win_frag_off[w + 1] > win_frag_off[w]
+            ) else 0
+            out_cap += 2 * max(len(cons_list[w]), tpl_len) + 256
+        out_c = np.empty(max(out_cap, 1), dtype=np.uint8)
+        out_s = np.empty(max(out_cap, 1), dtype=np.uint8)
+        out_off = np.zeros(n_win + 1, dtype=np.int64)
+        keys = np.empty(max(keys_cap, 1), dtype=np.int64)
+        vals = np.empty(max(keys_cap, 1), dtype=np.int32)
+        keys_off = np.zeros(n_win + 1, dtype=np.int64)
+        if status is None:
+            status = np.zeros(max(n_win, 1), dtype=np.int32)
+    with STATS.cpu_timer("host_post.native"):
+        n = lib.host_post_batch(
+            blob, lens if len(lens) else np.zeros(1, np.int64),
+            offsets if len(offsets) else np.zeros(1, np.int64),
+            win_frag_off, n_win,
+            cons_blob, cons_off,
+            k, solid_thresh, max_branches, zone, min_anchors, sup,
+            out_c, out_s, out_cap, out_off,
+            keys, vals, max(keys_cap, 1), keys_off,
+            status,
+        )
     if n < 0:
         return None
-    res = []
-    for w in range(n_win):
-        o0, o1 = out_off[w], out_off[w + 1]
-        k0, k1 = keys_off[w], keys_off[w + 1]
-        res.append(
-            (
-                out_c[o0:o1].copy(),
-                out_s[o0:o1].astype(bool),
-                SparseCounts(keys[k0:k1].copy(), vals[k0:k1].copy()),
+    with STATS.cpu_timer("host_post.marshal", 0):
+        res = []
+        for w in range(n_win):
+            o0, o1 = out_off[w], out_off[w + 1]
+            k0, k1 = keys_off[w], keys_off[w + 1]
+            res.append(
+                (
+                    out_c[o0:o1].copy(),
+                    out_s[o0:o1].astype(bool),
+                    SparseCounts(keys[k0:k1].copy(), vals[k0:k1].copy()),
+                )
             )
-        )
     return res
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import os
 import sys
 import time
@@ -196,9 +197,8 @@ class ConsensusEngine:
             units = [functools.partial(self._captured, S, B, self.rounds, dev)
                      for dev in self.mesh.distinct() for S, B in shapes]
             where = f"{len(self.mesh.distinct())} device(s)"
-        with STATS.timer("consensus.capture", len(units)):
-            for unit in units:
-                unit()
+        for unit in units:
+            unit()
         st = graph_ops.stats()
         new = st["graphs"] - g0
         if new:
@@ -219,7 +219,8 @@ class ConsensusEngine:
         per batch (intermediate consensuses are assembled on the
         device), so each batch fetches its result exactly once.
         Batches run on the chain pool so one batch's upload, fetch and
-        host post overlap other batches' device work."""
+        host post overlap other batches' device work; each is a task of
+        `consensus.chain` (utils/observe.py: StageStats.task)."""
         buckets: Dict[int, List[WindowTask]] = {}
         for t in tasks:
             n = min(len(t.frags), self.cfg.max_msa + 1)
@@ -249,12 +250,11 @@ class ConsensusEngine:
         for sub, S in jobs:
             with STATS.timer("consensus.build_batch", len(sub)):
                 arrays = self._build_arrays(sub, S)
+            chain = STATS.task("consensus.chain", self._job_chain)
             if pool is not None and len(jobs) > 1:
-                futs.append(
-                    pool.submit(self._job_chain, sub, S, arrays, rounds)
-                )
+                futs.append(pool.submit(chain, sub, S, arrays, rounds))
             else:
-                self._job_chain(sub, S, arrays, rounds)
+                chain(sub, S, arrays, rounds)
         for f in futs:
             f.result()
 
@@ -358,7 +358,11 @@ class ConsensusEngine:
 
         The native path runs whole window SLICES per ctypes call
         (host.cpp host_post_batch), fanned out over the shared
-        `--nproc`-sized pool (the native calls release the GIL)."""
+        `--nproc`-sized pool (the native calls release the GIL), each
+        slice a task of `host_post`.  Counted: windows that took the
+        per-window path after a capacity failure (`host_post.fallback`)
+        and windows that kept their template at the anchor gate
+        (`host_post.template_kept`)."""
         from consent_tpu_torch import native
         from consent_tpu_torch.utils.hostpool import host_pool
 
@@ -377,22 +381,30 @@ class ConsensusEngine:
 
                 def run_slice(span):
                     lo, hi = span
+                    status = np.zeros(hi - lo, dtype=np.int32)
                     res = native.host_post_batch_native(
                         uses[lo:hi], conss[lo:hi], sups[lo:hi],
                         cfg.mer_size, cfg.solid_thresh,
                         cfg.max_branches, cfg.dbg_zone,
-                        cfg.min_anchors,
+                        cfg.min_anchors, status=status,
                     )
                     if res is None:  # capacity failure: per-window path
-                        for b in range(lo, hi):
+                        kept = sum(
                             self._host_post_one(ts[b], cons_list[b], S)
+                            for b in range(lo, hi)
+                        )
+                        STATS.add("host_post.fallback", hi - lo)
+                        STATS.add("host_post.template_kept", kept)
                         return
+                    STATS.add("host_post.template_kept",
+                              int(np.count_nonzero(status == 1)))
                     for b, (c, s, sp) in enumerate(res, lo):
                         ts[b].consensus = c
                         ts[b].solid = s
                         ts[b].counts = sp
 
                 n = len(ts)
+                task = STATS.task("host_post", run_slice)
                 if pool is not None and n >= 16:
                     # ~4 slices per worker for DBG load balance
                     k = 4 * (cfg.n_workers or os.cpu_count() or 1)
@@ -401,14 +413,17 @@ class ConsensusEngine:
                         (lo, min(lo + step, n))
                         for lo in range(0, n, step)
                     ]
-                    list(pool.map(run_slice, spans))
+                    list(pool.map(task, spans))
                 else:
-                    run_slice((0, n))
+                    task((0, n))
             else:
-                for b, t in enumerate(ts):
-                    self._host_post_one(t, cons_list[b], S)
+                kept = sum(self._host_post_one(t, cons_list[b], S)
+                           for b, t in enumerate(ts))
+                STATS.add("host_post.template_kept", kept)
 
-    def _host_post_one(self, t, cons, S):
+    def _host_post_one(self, t, cons, S) -> bool:
+        """One window's host post; True when it kept its template at
+        the anchor gate."""
         cfg = self.cfg
         from consent_tpu_torch import native
 
@@ -416,14 +431,15 @@ class ConsensusEngine:
         use = t.frags[: min(len(t.frags), cfg.max_msa + 1, S)]
         # the WHOLE post chain (counts, anchor gate, solidity, DBG
         # polish) in one native call
+        status = np.zeros(1, dtype=np.int32)
         one = native.host_post_window_native(
             use, cons, cfg.mer_size, cfg.solid_thresh,
             cfg.max_branches, cfg.dbg_zone, cfg.min_anchors,
-            min(cfg.common_kmers, len(use) // 2),
+            min(cfg.common_kmers, len(use) // 2), status=status,
         )
         if one is not None:
             t.consensus, t.solid, t.counts = one
-            return
+            return bool(status[0] == 1)
         # an output capacity check failed: the chain step by step, with
         # the DBG repair in Python when the native one fails too
         dense, keys = native.count_kmers_sparse_native(use, cfg.mer_size)
@@ -439,7 +455,7 @@ class ConsensusEngine:
             t.consensus = tpl_f
             t.solid = np.ones(len(tpl_f), dtype=bool)
             t.counts = sparse
-            return
+            return True
         if len(cons) >= cfg.mer_size:
             solid = kmer_ops.solidity_mask(
                 cons, dense, cfg.mer_size, cfg.solid_thresh
@@ -462,6 +478,7 @@ class ConsensusEngine:
         t.consensus = cons
         t.solid = solid
         t.counts = sparse
+        return False
 
 
 def windows_of_pile(pile: Pile, read_index, cfg: ConsentConfig,
@@ -506,6 +523,13 @@ def process_piles(
     reads yield empty arrays (the caller skips empty output).  On the
     card the device calls replay captured graphs; graphs=False runs
     them op by op (for comparison only).
+
+    The calling thread's wall is split into five stages: `pipeline.pull`
+    (each chunk pulled from `piles`; the first pile of all, the
+    overlapper's index and first block, is `overlap.first_pile` inside
+    it), `pipeline.wait_geometry` and `pipeline.wait_consensus` (waits on
+    the two background slots), `pipeline.stitch` (a chunk's stitch and
+    trim) and `pipeline.consumer` (the caller's time between outputs).
     """
     engine = ConsensusEngine(cfg, device=device, graphs=graphs,
                              devices=devices)
@@ -524,20 +548,14 @@ def process_piles(
         per_read: List[Optional[List[WindowTask]]] = []
         with STATS.timer("windows.geometry", len(chunk)):
             pool = host_pool(cfg.n_workers, kind="work")
+            task = STATS.task(
+                "geometry",
+                lambda kp: windows_of_pile(kp[1], read_index, cfg, kp[0]),
+            )
             if pool is not None and len(chunk) >= 8:
-                per_read = list(
-                    pool.map(
-                        lambda kp: windows_of_pile(
-                            kp[1], read_index, cfg, kp[0]
-                        ),
-                        enumerate(chunk),
-                    )
-                )
+                per_read = list(pool.map(task, enumerate(chunk)))
             else:
-                per_read = [
-                    windows_of_pile(pile, read_index, cfg, key)
-                    for key, pile in enumerate(chunk)
-                ]
+                per_read = [task(kp) for kp in enumerate(chunk)]
             for tasks in per_read:
                 if tasks:
                     all_tasks.extend(tasks)
@@ -550,7 +568,7 @@ def process_piles(
         engine.run(all_tasks)
         return per_read
 
-    def stitch_stage(chunk: List[Pile], per_read):
+    def stitch_outputs(chunk: List[Pile], per_read):
         jobs: List[Optional[stitch_mod.StitchJob]] = []
         for key, pile in enumerate(chunk):
             tasks = per_read[key]
@@ -576,22 +594,42 @@ def process_piles(
                 [j for j in jobs if j is not None], batch_align
             )
 
+        outs = []
         for pile, job in zip(chunk, jobs):
             if job is None:
-                yield pile.q_name, np.empty(0, np.uint8), np.empty(0, bool)
+                outs.append((pile.q_name, np.empty(0, np.uint8),
+                             np.empty(0, bool)))
                 continue
             codes, solid = job.result()
             if cfg.trim:
                 codes, solid = postprocess.trim_read(codes, solid, 1)
                 if postprocess.drop_read(solid):
                     codes, solid = codes[:0], solid[:0]
-            yield pile.q_name, codes, solid
+            outs.append((pile.q_name, codes, solid))
+        return outs
+
+    def stitch_stage(chunk: List[Pile], per_read):
+        with STATS.timer("pipeline.stitch", len(chunk)):
+            outs = stitch_outputs(chunk, per_read)
+        # the caller's time between outputs, added once a chunk
+        consumer, n = 0.0, 0
+        try:
+            for out in outs:
+                t0 = time.perf_counter()
+                yield out
+                consumer += time.perf_counter() - t0
+                n += 1
+        finally:
+            STATS.add_seconds("pipeline.consumer", consumer, n)
 
     from concurrent.futures import ThreadPoolExecutor
 
     def chunks():
+        stream = iter(piles)
+        with STATS.timer("overlap.first_pile"):
+            head = list(itertools.islice(stream, 1))
         buf: List[Pile] = []
-        for pile in piles:
+        for pile in itertools.chain(head, stream):
             buf.append(pile)
             if len(buf) >= chunk_reads:
                 yield buf
@@ -599,29 +637,38 @@ def process_piles(
         if buf:
             yield buf
 
+    def pull(it):
+        with STATS.timer("pipeline.pull"):
+            return next(it, None)
+
+    def wait(stage, fut):
+        with STATS.timer(stage):
+            return fut.result()
+
     # three-slot software pipeline over chunks:
     #   geometry(k+2)  ||  consensus(k+1)  ||  stitch(k)
     # Two background threads; output order is unchanged because
     # chunks are consumed and yielded in order.
     it = chunks()
-    first = next(it, None)
+    first = pull(it)
     if first is None:
         return
     with ThreadPoolExecutor(max_workers=1) as geo_pipe, \
             ThreadPoolExecutor(max_workers=1) as cons_pipe:
         cur = first
         geo_fut = geo_pipe.submit(geometry_stage, cur)
-        nxt = next(it, None)
+        nxt = pull(it)
         nxt_geo_fut = (
             geo_pipe.submit(geometry_stage, nxt)
             if nxt is not None else None
         )
-        cons_fut = cons_pipe.submit(consensus_stage, geo_fut.result())
+        cons_fut = cons_pipe.submit(
+            consensus_stage, wait("pipeline.wait_geometry", geo_fut))
         while True:
-            per_read = cons_fut.result()
+            per_read = wait("pipeline.wait_consensus", cons_fut)
             if nxt_geo_fut is not None:
-                following = next(it, None)
-                geo_next = nxt_geo_fut.result()
+                following = pull(it)
+                geo_next = wait("pipeline.wait_geometry", nxt_geo_fut)
                 nxt_geo_fut = (
                     geo_pipe.submit(geometry_stage, following)
                     if following is not None else None

@@ -182,3 +182,6 @@ def test_profile_dir_writes_a_trace(plain, tmp_path):
     with open(trace_dir / trace) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    # the stage spans, the pool threads' among them, as host ranges
+    names = {e.get("name") for e in events}
+    assert {"pipeline.stitch", "host_post.run", "geometry.run"} <= names
