@@ -481,29 +481,185 @@ class ConsensusEngine:
         return False
 
 
+def _py_slice(start: np.ndarray, stop: np.ndarray, n: np.ndarray):
+    """Elementwise bounds of `seq[start:stop]` for sequences of length
+    n, resolved as Python resolves a slice (a negative bound counts from
+    the end, both are clipped to [0, n]); returns (lo, hi), hi >= lo."""
+    start = np.where(start < 0, start + n, start)
+    stop = np.where(stop < 0, stop + n, stop)
+    lo = np.minimum(np.maximum(start, 0), n)
+    hi = np.minimum(np.maximum(stop, 0), n)
+    return lo, np.maximum(hi, lo)
+
+
+def clip_piles(piles: Sequence[Pile], seq_maps: Sequence[dict],
+               poss: Sequence[Sequence[Tuple[int, int]]], mer_size: int):
+    """Every window's fragments of several piles in one vectorised pass.
+
+    Returns (frags, d0s, n_pairs) over the piles' windows in order (pile
+    by pile, `poss[k]` as `win_mod.window_positions` gives them): the
+    fragments and start offsets that `win_mod.clip_fragments(piles[k],
+    seq_maps[k], beg, end, mer_size, with_offsets=True)` returns for each
+    window, and the number of (window, overlap) pairs examined.  Only
+    pairs whose query spans intersect are enumerated (admission implies
+    intersection), so the extra memory is O(windows x depth).
+    Admission, the clipping cases and the offsets are array arithmetic
+    over those pairs; Python only slices the fragments kept.  Each '-'
+    target is reverse-complemented once a pass, and every fragment is a
+    view of its target or of that reverse complement."""
+    n_win = [len(p) for p in poss]
+    n_ov = [len(p.ov) for p in piles]
+    wp = np.array([w for p in poss for w in p], dtype=np.int64).reshape(-1, 2)
+    beg, end = wp[:, 0], wp[:, 1]
+    wpile = np.repeat(np.arange(len(piles)), n_win)
+    opile = np.repeat(np.arange(len(piles)), n_ov)
+    tpl_len = np.array([len(m[p.q_name]) for p, m in zip(piles, seq_maps)],
+                       dtype=np.int64)
+    on_tpl = end < tpl_len[wpile]
+
+    def field(name):
+        return np.concatenate([p.ov[name] for p in piles])
+
+    qs, qe = field("q_start"), field("q_end")
+
+    # candidate pairs: windows sorted by (pile, start); for each overlap
+    # those of its pile from the first whose running-max end reaches
+    # q_start to the last starting at or before q_end; the pile index
+    # scaled past every coordinate keeps the search inside the pile
+    big = max(int(end.max(initial=0)), int(qs.max(initial=0)),
+              int(qe.max(initial=0))) + 2
+    key = wpile * big + beg
+    order = np.argsort(key, kind="stable")
+    reach = np.maximum.accumulate(wpile[order] * big + end[order])
+    lo = np.searchsorted(reach, opile * big + np.maximum(qs, 0), "left")
+    hi = np.searchsorted(key[order], opile * big + np.maximum(qe, -1),
+                         "right")
+    cnt = np.maximum(hi - lo, 0)
+    n_pairs = int(cnt.sum())
+    oi = np.repeat(np.arange(len(qs)), cnt)
+    wi = order[lo[oi] + np.arange(n_pairs) - (np.cumsum(cnt) - cnt)[oi]]
+
+    b, e = beg[wi], end[wi]
+    w = e - b + 1
+    q0, q1 = qs[oi], qe[oi]
+    t0, t1 = field("t_start")[oi], field("t_end")[oi]
+    t_len = field("t_len")[oi]
+    strand = field("strand")
+    minus = strand[oi]
+    shift = np.where(b > q0, b - q0, 0)
+    # admission (clip_fragments): the alignment reaches into the window
+    # from the left, or covers or passes its right end
+    admit = ((((q0 <= b) & (q1 > b)) | ((e <= q1) & (q0 < e)))
+             & (t0 + shift <= t1) & on_tpl[wi])
+
+    # the three live clipping cases and the dead branch (left & right);
+    # a left clip already has shift 0
+    left, right = b < q0, q1 < e
+    t_beg = np.where(left, np.maximum(0, t0 - (q0 - b)), t0)
+    t_end = np.where(right, np.minimum(t_len - 1, t1 + (e - q1)), t1)
+    length = np.where(
+        left & right, t_end - t_beg + 1,
+        np.where(left,
+                 np.minimum(w, np.minimum(t_len - 1, t_beg + w - 1)
+                            - t_beg + 1),
+                 np.where(right,
+                          np.minimum(w, t_end - np.maximum(0, t_end - w + 1)
+                                     + 1),
+                          w)))
+
+    # slab = seq[t_beg : t_end + 1]; fragment = slab[shift : shift + length],
+    # taken from the reverse complement for '-'
+    n_seq = np.fromiter(
+        (len(m[t]) for p, m in zip(piles, seq_maps) for t in p.t_names),
+        dtype=np.int64, count=len(qs))[oi]
+    s_lo, s_hi = _py_slice(t_beg, t_end + 1, n_seq)
+    f_lo, f_hi = _py_slice(shift, shift + length, s_hi - s_lo)
+    f_len = f_hi - f_lo
+    # admitted and long enough
+    sel = np.flatnonzero(admit & (f_len >= mer_size))
+    rows, wins = oi[sel], wi[sel]
+    b, q0, t0, t1, shift, t_beg, t_end, minus = (
+        x[sel] for x in (b, q0, t0, t1, shift, t_beg, t_end, minus))
+    start = np.where(minus, n_seq[sel] - s_hi[sel], s_lo[sel]) + f_lo[sel]
+
+    # window column of fragment base 0, through the overlap's span ratio
+    tb0 = np.where(minus, t_end - shift, t_beg + shift)
+    t_rel = np.where(minus, t1 - tb0, tb0 - t0)
+    t_span = t1 - t0
+    scale = np.where(t_span > 0, (q1[sel] - q0) / np.maximum(t_span, 1),
+                     1.0)
+    d0 = np.rint(q0 + t_rel * scale).astype(np.int64) - b
+
+    # in window order, each window on its template led by the
+    # template's slice (source key -1 - pile, offset 0), then its
+    # fragments in pile row order (source key: the row)
+    tw = np.flatnonzero(on_tpl)
+    win_all = np.concatenate([wins, tw])
+    key_all = np.concatenate([rows, -1 - wpile[tw]])
+    emit = np.lexsort((key_all, win_all))
+    key_all = key_all[emit]
+    start_all = np.concatenate([start, beg[tw]])[emit]
+    len_all = np.concatenate([f_len[sel], (end - beg + 1)[tw]])[emit]
+    d0_all = np.concatenate([d0, np.zeros(len(tw), np.int64)])[emit]
+
+    names = [t for p in piles for t in p.t_names]
+    srcs: Dict[int, np.ndarray] = {
+        -1 - k: m[p.q_name] for k, (p, m) in enumerate(zip(piles, seq_maps))}
+    rc: Dict[int, np.ndarray] = {}
+    for r in np.unique(rows).tolist():
+        seq = seq_maps[opile[r]][names[r]]
+        if strand[r]:
+            if id(seq) not in rc:
+                # codes are 0-3 (io/seqs.py): the complement is code ^ 3
+                rc[id(seq)] = seq[::-1] ^ 3
+            seq = rc[id(seq)]
+        srcs[r] = seq
+    flat = [srcs[k][a:a + n] for k, a, n in
+            zip(key_all.tolist(), start_all.tolist(), len_all.tolist())]
+    flat_d0 = d0_all.tolist()
+    bounds = np.concatenate(
+        [[0], np.cumsum(np.bincount(win_all, minlength=len(wp)))]).tolist()
+    frags = [flat[i:j] for i, j in zip(bounds, bounds[1:])]
+    d0s = [flat_d0[i:j] for i, j in zip(bounds, bounds[1:])]
+    return frags, d0s, n_pairs
+
+
+def windows_of_piles(piles: Sequence[Pile], read_index, cfg: ConsentConfig,
+                     first_key: int = 0) -> List[Optional[List[WindowTask]]]:
+    """`windows_of_pile` for consecutive piles (read keys first_key,
+    first_key + 1, ...): window positions pile by pile, then every
+    window's fragments in one vectorised pass (`clip_piles`).  Counts
+    the (window, overlap) pairs examined (`geometry.pairs`) and the
+    support fragments emitted (`geometry.frags`)."""
+    seq_maps, poss = [], []
+    for pile in piles:
+        seq_map = win_mod.sequences_map(pile, read_index)
+        q_len = len(seq_map[pile.q_name])
+        cov = win_mod.coverage(q_len, pile.ov)
+        seq_maps.append(seq_map)
+        poss.append(win_mod.window_positions(
+            q_len, cov, cfg.min_support, cfg.window_size,
+            cfg.window_overlap))
+    frags, d0s, n_pairs = clip_piles(piles, seq_maps, poss, cfg.mer_size)
+    STATS.add("geometry.pairs", n_pairs)
+    STATS.add("geometry.frags", sum(max(len(f) - 1, 0) for f in frags))
+    out: List[Optional[List[WindowTask]]] = []
+    g = 0
+    for k, pos in enumerate(poss):
+        out.append([
+            WindowTask(read_key=first_key + k, window_idx=i, pos=(beg, end),
+                       frags=frags[g + i], d0s=d0s[g + i])
+            for i, (beg, end) in enumerate(pos)] or None)
+        g += len(pos)
+    return out
+
+
 def windows_of_pile(pile: Pile, read_index, cfg: ConsentConfig,
                     read_key: int) -> Optional[List[WindowTask]]:
     """Window positions + clipped fragments for one pile; None when the
     pile yields no window (the reference silently drops such
     reads/contigs)."""
-    seq_map = win_mod.sequences_map(pile, read_index)
-    q_len = len(seq_map[pile.q_name])
-    cov = win_mod.coverage(q_len, pile.ov)
-    pos = win_mod.window_positions(
-        q_len, cov, cfg.min_support, cfg.window_size, cfg.window_overlap
-    )
-    if not pos:
-        return None
-    tasks = []
-    for w_idx, (beg, end) in enumerate(pos):
-        frags, d0s = win_mod.clip_fragments(
-            pile, seq_map, beg, end, cfg.mer_size, with_offsets=True
-        )
-        tasks.append(
-            WindowTask(read_key=read_key, window_idx=w_idx,
-                       pos=(beg, end), frags=frags, d0s=d0s)
-        )
-    return tasks
+    return windows_of_piles([pile], read_index, cfg, read_key)[0]
 
 
 def process_piles(
@@ -541,24 +697,14 @@ def process_piles(
 
     def geometry_stage(chunk: List[Pile]):
         """Chunk stage 0: window geometry (pure host), its own pipeline
-        slot so chunk k+2's geometry overlaps chunk k+1's consensus."""
-        from consent_tpu_torch.utils.hostpool import host_pool
-
-        all_tasks: List[WindowTask] = []
-        per_read: List[Optional[List[WindowTask]]] = []
+        slot so chunk k+2's geometry overlaps chunk k+1's consensus.
+        The chunk is one geometry task, vectorised over its piles and
+        run on this slot's own thread: the shared `work` pool is left
+        to the host post's slices and the stitch's apply."""
         with STATS.timer("windows.geometry", len(chunk)):
-            pool = host_pool(cfg.n_workers, kind="work")
-            task = STATS.task(
-                "geometry",
-                lambda kp: windows_of_pile(kp[1], read_index, cfg, kp[0]),
-            )
-            if pool is not None and len(chunk) >= 8:
-                per_read = list(pool.map(task, enumerate(chunk)))
-            else:
-                per_read = [task(kp) for kp in enumerate(chunk)]
-            for tasks in per_read:
-                if tasks:
-                    all_tasks.extend(tasks)
+            per_read = STATS.task("geometry", windows_of_piles)(
+                chunk, read_index, cfg)
+            all_tasks = [t for tasks in per_read if tasks for t in tasks]
         STATS.add("windows.total", len(all_tasks))
         return per_read, all_tasks
 

@@ -20,11 +20,12 @@ import torch
 
 from consent_tpu_torch import native
 from consent_tpu_torch.config import correct_preset
+from consent_tpu_torch.core import windows
 from consent_tpu_torch.io.fasta import ReadIndex
 from consent_tpu_torch.ops import graphs as graph_ops
 from consent_tpu_torch.pipeline import engine as t_engine
 from consent_tpu_torch.testing import simulate
-from consent_tpu_torch.utils import observe
+from consent_tpu_torch.utils import hostpool, observe
 from consent_tpu_torch.utils.observe import GLOBAL_STATS, StageStats
 
 torch.set_num_threads(2)
@@ -66,19 +67,22 @@ def run():
     for r in reads:
         index.add(r.name, r.codes)
     piles = simulate.piles_from_sim(reads, cfg.max_support)[:6]
+    before = {n: index[n].copy() for n in index.names()}
     calls = {k: 0 for k in TASKS + ("host_post_batch",)}
+    threads = {}
     lock = threading.Lock()
 
     def counting(key, fn):
         def wrapped(*a, **k):
             with lock:
                 calls[key] += 1
+                threads.setdefault(key, set()).add(threading.current_thread())
             return fn(*a, **k)
         return wrapped
 
     mp = pytest.MonkeyPatch()
-    mp.setattr(t_engine, "windows_of_pile",
-               counting("geometry", t_engine.windows_of_pile))
+    mp.setattr(t_engine, "windows_of_piles",
+               counting("geometry", t_engine.windows_of_piles))
     mp.setattr(t_engine.ConsensusEngine, "_job_chain",
                counting("consensus.chain",
                         t_engine.ConsensusEngine._job_chain))
@@ -102,8 +106,11 @@ def run():
         GLOBAL_STATS.seconds.clear()
         GLOBAL_STATS.counts.clear()
     calls["host_post"] = calls.pop("host_post_batch")
+    index_unchanged = all(np.array_equal(index[n], a)
+                          for n, a in before.items())
     return dict(snap=snap, wall=wall, calls=calls, seen=seen, outs=outs,
-                n_piles=len(piles))
+                n_piles=len(piles), piles=piles, index=index, cfg=cfg,
+                threads=threads, index_unchanged=index_unchanged)
 
 
 def test_pipeline_stages_add_up_to_the_wall(run):
@@ -132,6 +139,80 @@ def test_pool_tasks_record_queue_run_and_cpu(run, stage):
     assert s[stage + ".queue"] >= 0.0
     # one thread's CPU time inside an interval is at most its wall
     assert s[stage + ".run.cpu"] <= s[stage + ".run"] + 1e-6 * n
+
+
+def test_geometry_counters_match_the_per_window_oracle(run):
+    """geometry.pairs counts the (window, overlap) pairs whose query
+    spans intersect, geometry.frags the support fragments kept, both
+    as clip_fragments called window by window gives them."""
+    c, cfg = run["snap"]["counts"], run["cfg"]
+    pairs = frags = 0
+    for pile in run["piles"]:
+        seq_map = windows.sequences_map(pile, run["index"])
+        q_len = len(seq_map[pile.q_name])
+        pos = windows.window_positions(
+            q_len, windows.coverage(q_len, pile.ov), cfg.min_support,
+            cfg.window_size, cfg.window_overlap)
+        ov = pile.ov
+        for b, e in pos:
+            pairs += int(((ov["q_start"] <= e) & (ov["q_end"] >= b)).sum())
+            frags += len(windows.clip_fragments(pile, seq_map, b, e,
+                                                cfg.mer_size)) - 1
+    assert frags > 0 and pairs > frags
+    assert c["geometry.pairs"] == pairs
+    assert c["geometry.frags"] == frags
+
+
+def test_geometry_runs_on_its_slot_thread_once_a_chunk(run):
+    """Every chunk is one geometry task, called on the geometry slot's
+    own thread: none on the caller's thread or on a shared pool's."""
+    c = run["snap"]["counts"]
+    assert run["calls"]["geometry"] == 3      # chunks of two piles
+    for part in (".queue", ".run", ".run.cpu"):
+        assert c["geometry" + part] == 3, part
+    (geo,) = run["threads"]["geometry"]
+    assert geo is not threading.main_thread()
+    pooled = {t for pool in hostpool._POOLS.values() for t in pool._threads}
+    # the host post's slices fan out over the shared `work` pool
+    assert run["threads"]["host_post_batch"] <= pooled
+    assert run["threads"]["host_post_batch"]
+    assert geo not in pooled
+
+
+def test_geometry_stays_off_the_pool_for_a_full_chunk(monkeypatch):
+    """A chunk of eight piles, enough to fan out over a pool, is one
+    geometry task on the slot's own thread."""
+    genome, reads = simulate.simulate(genome_len=3000, coverage=14.0,
+                                      read_len=900, error_rate=0.10, seed=42)
+    cfg = correct_preset(window_size=200, window_overlap=20, min_support=3,
+                         n_workers=2)
+    index = ReadIndex()
+    for r in reads:
+        index.add(r.name, r.codes)
+    piles = simulate.piles_from_sim(reads, cfg.max_support)[:8]
+    seen = []
+    orig = t_engine.windows_of_piles
+
+    def wrapped(*a, **k):
+        seen.append(threading.current_thread())
+        return orig(*a, **k)
+
+    monkeypatch.setattr(t_engine, "windows_of_piles", wrapped)
+    stats = StageStats()
+    monkeypatch.setattr(t_engine, "STATS", stats)
+    outs = list(t_engine.process_piles(iter(piles), index, cfg,
+                                       chunk_reads=8, device="cpu"))
+    assert len(outs) == 8 and len(seen) == 1
+    pooled = {t for pool in hostpool._POOLS.values() for t in pool._threads}
+    assert pooled and not set(seen) & pooled
+    assert seen[0] is not threading.main_thread()
+    assert stats.counts["geometry.run"] == 1
+
+
+def test_fragment_views_leave_the_read_index_unchanged(run):
+    """Fragments are views of the index's arrays (or of a geometry
+    pass's reverse complements): a whole run writes none of them."""
+    assert run["index_unchanged"]
 
 
 def test_host_post_native_and_marshal_lie_inside_its_tasks(run):
