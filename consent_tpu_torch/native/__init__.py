@@ -1,4 +1,6 @@
-"""ctypes bindings for the native host library (host.cpp).
+"""ctypes bindings for the native host library (host.cpp, with
+stitch_rounds.cpp's table of a chunk's stitch jobs and spans_wire.cpp's
+packer of the stitch aligner's wire rows).
 
 Compiled with g++ on first use into the gitignored build/ directory
 (utils/build.py).  The pipeline requires the library: get_lib() raises
@@ -18,6 +20,8 @@ from consent_tpu_torch.utils.observe import GLOBAL_STATS as STATS
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "host.cpp")
+_SRC_ROUNDS = os.path.join(_HERE, "stitch_rounds.cpp")
+_SRC_WIRE = os.path.join(_HERE, "spans_wire.cpp")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -36,7 +40,7 @@ def get_lib() -> ctypes.CDLL:
         # that reject the flag
         base = ["g++", "-shared", "-fPIC", "-std=c++17"]
         path = build_shared(
-            "consent_host", [_SRC],
+            "consent_host", [_SRC, _SRC_ROUNDS, _SRC_WIRE],
             [base + ["-O3", "-march=native"], base + ["-O3"]],
         )
         lib = ctypes.CDLL(path)
@@ -128,6 +132,30 @@ def get_lib() -> ctypes.CDLL:
             u8p, u8p, i64p, u8p, u8p, i64p, i64p,
         ]
         lib.stitch_apply_round.restype = None
+        i64 = ctypes.c_int64
+        u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+        lib.sr_new.argtypes = [
+            i64, i64p, u8p, i64p, u64p, u64p, i64p, i64p, i64p, u64p, u64p,
+            i64p, i64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, i64, i64,
+        ]
+        lib.sr_new.restype = ctypes.c_void_p
+        lib.sr_free.argtypes = [ctypes.c_void_p]
+        lib.sr_free.restype = None
+        lib.sr_requests.argtypes = [
+            ctypes.c_void_p, i64p, i64, u8p, i64, i64p, i64p, u8p, i64,
+            i64p, i64p,
+        ]
+        lib.sr_requests.restype = i64
+        lib.sr_apply.argtypes = [ctypes.c_void_p, i64p, i64, i32p]
+        lib.sr_apply.restype = i64
+        lib.sr_results.argtypes = [ctypes.c_void_p, i64p, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_void_p]
+        lib.sr_results.restype = None
+        lib.spans_wire_pack.argtypes = [
+            u8p, i64p, i64p, u8p, i64p, i64p, i64, i64, i64, i64, u8p,
+        ]
+        lib.spans_wire_pack.restype = None
         _lib = lib
         return _lib
 
@@ -446,29 +474,30 @@ def local_align_native(q, r, match=2, mismatch=-2, gap_open=3, gap_extend=1):
     return res
 
 
-def posterior_spans_native(qs, rs, match, mismatch, gap_open,
-                           gap_extend):
+def posterior_spans_native(q_rows, q_off, q_len, r_rows, r_off, r_len,
+                           match, mismatch, gap_open, gap_extend):
     """Batched posterior-span local alignment (the device stitch
     aligner's exact span contract: union bounding box of matched cells
-    over all optimal local alignments).  qs/rs: lists of uint8 code
-    arrays.  Returns an [n, 5] int32 array (qb, qe, rb, re, valid)."""
-    lib = get_lib()
-    n = len(qs)
-    q_len = np.fromiter((len(q) for q in qs), np.int64, n)
-    r_len = np.fromiter((len(r) for r in rs), np.int64, n)
-    q_off = np.zeros(n, np.int64)
-    np.cumsum(q_len[:-1], out=q_off[1:] if n > 1 else q_off[:0])
-    r_off = np.zeros(n, np.int64)
-    np.cumsum(r_len[:-1], out=r_off[1:] if n > 1 else r_off[:0])
-    qbuf = (np.concatenate(qs).astype(np.uint8, copy=False)
-            if n else np.empty(0, np.uint8))
-    rbuf = (np.concatenate(rs).astype(np.uint8, copy=False)
-            if n else np.empty(0, np.uint8))
-    qbuf = np.ascontiguousarray(qbuf)
-    rbuf = np.ascontiguousarray(rbuf)
+    over all optimal local alignments).  Pair i is query q_rows[q_off[i]
+    : q_off[i] + q_len[i]] against ref r_rows[r_off[i] : ...] (uint8
+    codes; int64 offsets and lengths).  Returns an [n, 5] int32 array
+    (qb, qe, rb, re, valid)."""
+    n = len(q_len)
     out = np.empty((n, 5), np.int32)
-    lib.posterior_spans_batch(
-        qbuf, q_off, q_len, rbuf, r_off, r_len, n,
+    get_lib().posterior_spans_batch(
+        q_rows, q_off, q_len, r_rows, r_off, r_len, n,
         match, mismatch, gap_open, gap_extend, out.reshape(-1),
     )
     return out
+
+
+def spans_wire_pack(q_rows, q_off, q_len, r_rows, r_off, r_len, Lq, Lr,
+                    lanes):
+    """The stitch aligner's wire rows of pairs laid out as for
+    posterior_spans_native: [lanes, Lq / 4 + Lr / 4 + 8] uint8, each
+    lane's query and ref 2-bit packed (pack_bases_host) and padded to Lq
+    and Lr, then their int32 lengths; the lanes past the pairs zero."""
+    wire = np.empty((lanes, Lq // 4 + Lr // 4 + 8), np.uint8)
+    get_lib().spans_wire_pack(q_rows, q_off, q_len, r_rows, r_off, r_len,
+                              len(q_len), lanes, Lq, Lr, wire)
+    return wire

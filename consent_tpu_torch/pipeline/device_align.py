@@ -3,7 +3,12 @@
 Pads ragged (query, ref) pair lists into fixed-shape buckets (lane
 count = power of two, lengths = multiples of 128), runs the posterior
 aligner (the full-width kernel on the card, its plain version on the
-CPU), and returns host AlignSpans.  On the card each bucket shape
+CPU), and returns host AlignSpans, read off the call's [n, 5] spans
+(`SpanRows`).  A batch is held as `Pairs`, two compact blobs with
+offsets: lists of arrays are gathered into one, and a caller that holds
+its requests so already (the native stitch table) hands its own over as
+`Pairs.sides()`.  The wire rows are packed natively (spans_wire.cpp).
+On the card each bucket shape
 (N, Lq, Lr) is captured as a CUDA graph at its first use and replayed
 after (ops/graphs.py), as the JAX package jits the call per static
 (Lq, Lr).
@@ -24,11 +29,10 @@ import torch
 from consent_tpu_torch.ops import align as align_ops
 from consent_tpu_torch.ops import cuda_align
 from consent_tpu_torch.ops import graphs as graph_ops
-from consent_tpu_torch.ops.consensus import (
-    _bitcast32, pack_bases_host, unpack_bases,
-)
+from consent_tpu_torch.ops.consensus import _bitcast32, unpack_bases
 from consent_tpu_torch.parallel.mesh import run_call
 from consent_tpu_torch.pipeline.stitch import STITCH_SCORING, AlignSpan
+from consent_tpu_torch.utils.observe import GLOBAL_STATS as STATS
 
 MAX_LANES_PER_CALL = 1024
 
@@ -85,6 +89,100 @@ def _next_pow2(x: int) -> int:
     return n
 
 
+class Pairs:
+    """(query, ref) pairs as two compact uint8 blobs: pair i's query is
+    q_rows[q_off[i] : q_off[i] + q_len[i]], its ref r_rows[r_off[i] :
+    r_off[i] + r_len[i]] (int64 offsets and lengths)."""
+
+    __slots__ = ("q_rows", "q_off", "q_len", "r_rows", "r_off", "r_len")
+
+    def __init__(self, q_rows, q_off, q_len, r_rows, r_off, r_len):
+        self.q_rows, self.q_off, self.q_len = q_rows, q_off, q_len
+        self.r_rows, self.r_off, self.r_len = r_rows, r_off, r_len
+
+    @classmethod
+    def of(cls, qs, rs) -> "Pairs":
+        """From lists of code arrays."""
+        return cls(*_blob(qs), *_blob(rs))
+
+    def __len__(self) -> int:
+        return len(self.q_len)
+
+    def sides(self) -> tuple:
+        """(qs, rs): the queries and the refs as sequences of arrays, for
+        an aligner's dispatch(qs, rs)."""
+        return PairSide(self, 0), PairSide(self, 1)
+
+    def host_spans(self) -> np.ndarray:
+        """The pairs' spans by the native host aligner, [n, 5] int32."""
+        from consent_tpu_torch import native
+
+        return native.posterior_spans_native(
+            self.q_rows, self.q_off, self.q_len, self.r_rows, self.r_off,
+            self.r_len, **STITCH_SCORING)
+
+
+class PairSide:
+    """The queries (side 0) or refs (side 1) of `pairs` as a sequence of
+    array views, made at the first read of a lane."""
+
+    __slots__ = ("pairs", "side", "_views")
+
+    def __init__(self, pairs: Pairs, side: int):
+        self.pairs = pairs
+        self.side = side
+        self._views: Optional[List[np.ndarray]] = None
+
+    def _lanes(self) -> List[np.ndarray]:
+        if self._views is None:
+            p = self.pairs
+            blob, off, ln = ((p.q_rows, p.q_off, p.q_len) if self.side == 0
+                             else (p.r_rows, p.r_off, p.r_len))
+            self._views = [blob[o : o + n]
+                           for o, n in zip(off.tolist(), ln.tolist())]
+        return self._views
+
+    def __len__(self) -> int:
+        return len(self.pairs)
+
+    def __getitem__(self, i):
+        return self._lanes()[i]
+
+    def __iter__(self):
+        return iter(self._lanes())
+
+
+class SpanRows:
+    """A call's spans as its [n, 5] int32 rows (q_begin, q_end, r_begin,
+    r_end, valid), read lane by lane as AlignSpans."""
+
+    __slots__ = ("rows",)
+
+    def __init__(self, rows: np.ndarray):
+        self.rows = rows
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, i: int) -> AlignSpan:
+        r = self.rows[i]
+        return AlignSpan(int(r[0]), int(r[1]), int(r[2]), int(r[3]),
+                         bool(r[4]))
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self.rows)))
+
+
+def _blob(arrays):
+    """uint8 arrays end to end, with each one's offset and length."""
+    n = len(arrays)
+    ln = np.fromiter(map(len, arrays), np.int64, n)
+    off = np.zeros(n, np.int64)
+    np.cumsum(ln[:-1], out=off[1:])
+    blob = np.concatenate(arrays) if n else np.empty(0, np.uint8)
+    return np.ascontiguousarray(blob, dtype=np.uint8), off, ln
+
+
 def device_batch_align(qs: List[np.ndarray], rs: List[np.ndarray],
                        fixed_len: Optional[int] = None, mesh=None,
                        device="cuda", graphs: bool = True
@@ -114,12 +212,13 @@ NATIVE_MAX_LANES = 8
 class FixedAligner:
     """Stitch aligner with shapes pinned for one pipeline config.
 
-    Exposes the async protocol run_stitch uses to interleave job
-    groups (dispatch returns as soon as the work is queued on the
-    device; collect blocks on the fetch).  Tiny batches on the card
-    route to the native host aligner (same span contract).  Calls on
-    the card replay captured graphs; graphs=False runs them op by op,
-    for comparison only."""
+    Exposes the async protocol the stitch uses to interleave job groups
+    (dispatch returns as soon as the work is queued on the device;
+    collect blocks on the fetch and gives SpanRows).  dispatch takes
+    lists of arrays, or a Pairs' sides as they are.  Batches of at most
+    NATIVE_MAX_LANES on a card route to the native host aligner (same
+    span contract).  Calls on the card replay captured graphs;
+    graphs=False runs them op by op, for comparison only."""
 
     def __init__(self, cfg, device="cuda", graphs=True, mesh=None):
         self.fixed_len = _round_up(
@@ -131,26 +230,19 @@ class FixedAligner:
         self.graphs = graphs and self.device.type == "cuda"
         self.mesh = mesh
 
-    def _native(self, qs, rs):
-        if self.device.type == "cpu":
-            return None     # keep the CPU path identical to the reference
-        from consent_tpu_torch import native
-
-        out = native.posterior_spans_native(qs, rs, **STITCH_SCORING)
-        return [
-            AlignSpan(int(out[i, 0]), int(out[i, 1]), int(out[i, 2]),
-                      int(out[i, 3]), bool(out[i, 4]))
-            for i in range(len(qs))
-        ]
+    def _small_on_host(self) -> bool:
+        # on the CPU every batch stays the plain aligner's, as the
+        # reference's
+        return self.device.type == "cuda"
 
     def dispatch(self, qs, rs):
-        if len(qs) <= NATIVE_MAX_LANES:
-            spans = self._native(qs, rs)
-            if spans is not None:
-                return ("done", spans)
-        assert len(qs) <= MAX_LANES_PER_CALL
-        return ("dev", _dispatch_one(qs, rs, self.fixed_len, self.device,
-                                     self.graphs, self.mesh))
+        pairs = qs.pairs if isinstance(qs, PairSide) else Pairs.of(qs, rs)
+        if len(pairs) <= NATIVE_MAX_LANES and self._small_on_host():
+            STATS.add("stitch.host_lanes", len(pairs))
+            return ("done", SpanRows(pairs.host_spans()))
+        assert len(pairs) <= MAX_LANES_PER_CALL
+        return ("dev", _dispatch_pairs(pairs, self.fixed_len, self.device,
+                                       self.graphs, self.mesh))
 
     def collect(self, handle):
         kind, payload = handle
@@ -167,45 +259,47 @@ class FixedAligner:
         return out
 
 
-def _dispatch_one(qs, rs, fixed_len=None, device=None, graphs=False,
-                  mesh=None):
+def _wire_buffer(pairs: Pairs, fixed_len=None, n_shards=1):
+    """The wire rows of one call over n_shards shards (_spans_wire_body's
+    layout), the lanes past the pairs zero; returns (buf, per, Lq, Lr):
+    per lanes a shard, a power of two, and the lengths multiples of 128
+    and at least fixed_len."""
+    from consent_tpu_torch import native
+
+    per = _next_pow2(-(-len(pairs) // n_shards))
+    Lq = _round_up(int(pairs.q_len.max()), 128)
+    Lr = _round_up(int(pairs.r_len.max()), 128)
+    if fixed_len is not None:
+        Lq = max(Lq, fixed_len)
+        Lr = max(Lr, fixed_len)
+    buf = native.spans_wire_pack(
+        pairs.q_rows, pairs.q_off, pairs.q_len, pairs.r_rows, pairs.r_off,
+        pairs.r_len, Lq, Lr, n_shards * per)
+    return buf, per, Lq, Lr
+
+
+def _dispatch_pairs(pairs: Pairs, fixed_len=None, device=None,
+                    graphs=False, mesh=None):
     """Queue one batched span call on the device, or split over the
     shards of `mesh` (a captured graph's replay per shard on a card when
     `graphs`); returns (Pending, n) — _collect fetches it."""
     devs = [device] if mesh is None else mesh.devices()
-    nd = len(devs)
-    n = len(qs)
-    per = _next_pow2(-(-n // nd))     # lanes of each shard
-    lanes = nd * per
-    Lq = _round_up(max(len(q) for q in qs), 128)
-    Lr = _round_up(max(len(r) for r in rs), 128)
-    if fixed_len is not None:
-        Lq = max(Lq, fixed_len)
-        Lr = max(Lr, fixed_len)
-    q = np.zeros((lanes, Lq), dtype=np.uint8)
-    r = np.zeros((lanes, Lr), dtype=np.uint8)
-    ln = np.zeros((lanes, 2), dtype=np.int32)
-    for i, (a, b) in enumerate(zip(qs, rs)):
-        q[i, : len(a)] = a
-        r[i, : len(b)] = b
-        ln[i, 0] = len(a)
-        ln[i, 1] = len(b)
-    buf = np.concatenate(
-        [pack_bases_host(q), pack_bases_host(r), ln.view(np.uint8)],
-        axis=1,
-    )
+    buf, per, Lq, Lr = _wire_buffer(pairs, fixed_len, len(devs))
     fn = functools.partial(_spans_wire_body, Lq=Lq, Lr=Lr)
     key = ("stitch", per, Lq, Lr)
     parts = [run_call(dev, fn, buf[k * per : (k + 1) * per], graphs, key)
              for k, dev in enumerate(devs)]
-    return (parts[0] if nd == 1 else graph_ops.Joined(parts)), n
+    pending = parts[0] if len(devs) == 1 else graph_ops.Joined(parts)
+    return pending, len(pairs)
 
 
-def _collect(handle):
+def _dispatch_one(qs, rs, fixed_len=None, device=None, graphs=False,
+                  mesh=None):
+    """_dispatch_pairs of lists of arrays."""
+    return _dispatch_pairs(Pairs.of(qs, rs), fixed_len, device, graphs,
+                           mesh)
+
+
+def _collect(handle) -> SpanRows:
     pending, n = handle
-    out = pending.result()
-    return [
-        AlignSpan(int(out[i, 0]), int(out[i, 1]), int(out[i, 2]),
-                  int(out[i, 3]), bool(out[i, 4]))
-        for i in range(n)
-    ]
+    return SpanRows(pending.result()[:n])

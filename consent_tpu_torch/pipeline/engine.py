@@ -45,7 +45,7 @@ from consent_tpu_torch.ops import graphs as graph_ops
 from consent_tpu_torch.ops import kmer as kmer_ops
 from consent_tpu_torch.ops.align import Scoring
 from consent_tpu_torch.parallel import mesh as mesh_mod
-from consent_tpu_torch.pipeline import stitch as stitch_mod
+from consent_tpu_torch.pipeline import stitch_rounds
 from consent_tpu_torch.pipeline.device_align import resolve_device
 from consent_tpu_torch.utils.observe import GLOBAL_STATS as STATS
 
@@ -678,7 +678,9 @@ def process_piles(
     Yields (name, codes, solid) per input pile, in order; dropped
     reads yield empty arrays (the caller skips empty output).  On the
     card the device calls replay captured graphs; graphs=False runs
-    them op by op (for comparison only).
+    them op by op (for comparison only).  `batch_align`, the stitch's
+    aligner, has FixedAligner's dispatch/collect protocol (by default a
+    FixedAligner over the engine's devices).
 
     The calling thread's wall is split into five stages: `pipeline.pull`
     (each chunk pulled from `piles`; the first pile of all, the
@@ -700,7 +702,7 @@ def process_piles(
         slot so chunk k+2's geometry overlaps chunk k+1's consensus.
         The chunk is one geometry task, vectorised over its piles and
         run on this slot's own thread: the shared `work` pool is left
-        to the host post's slices and the stitch's apply."""
+        to the host post's slices."""
         with STATS.timer("windows.geometry", len(chunk)):
             per_read = STATS.task("geometry", windows_of_piles)(
                 chunk, read_index, cfg)
@@ -715,38 +717,25 @@ def process_piles(
         return per_read
 
     def stitch_outputs(chunk: List[Pile], per_read):
-        jobs: List[Optional[stitch_mod.StitchJob]] = []
-        for key, pile in enumerate(chunk):
-            tasks = per_read[key]
-            if not tasks:
-                jobs.append(None)
-                continue
-            raw = read_index[pile.q_name]
-            job = stitch_mod.StitchJob(
-                name=pile.q_name,
-                raw_codes=raw,
-                piles_pos=[t.pos for t in tasks],
-                consensuses=[(t.consensus, t.solid) for t in tasks],
-                templates=[
-                    t.frags[0] if t.frags else np.empty(0, np.uint8)
-                    for t in tasks
-                ],
-                counts=[t.counts for t in tasks],
-                cfg=cfg,
-            )
-            jobs.append(job)
-        with STATS.timer("stitch.total", len(chunk)):
-            stitch_mod.run_stitch(
-                [j for j in jobs if j is not None], batch_align
-            )
+        """The chunk's stitch and trim: its jobs as one native table,
+        driven in lockstep rounds on `batch_align`'s dispatch/collect
+        (pipeline/stitch_rounds.py)."""
+        keys = [key for key, tasks in enumerate(per_read) if tasks]
+        with stitch_rounds.StitchTable.from_tasks(
+                cfg, [read_index[chunk[key].q_name] for key in keys],
+                [per_read[key] for key in keys]) as table:
+            with STATS.timer("stitch.total", len(chunk)):
+                table.run(batch_align)
+            results = table.results()
 
+        stitched = dict(zip(keys, results))
         outs = []
-        for pile, job in zip(chunk, jobs):
-            if job is None:
+        for key, pile in enumerate(chunk):
+            if key not in stitched:
                 outs.append((pile.q_name, np.empty(0, np.uint8),
                              np.empty(0, bool)))
                 continue
-            codes, solid = job.result()
+            codes, solid = stitched[key]
             if cfg.trim:
                 codes, solid = postprocess.trim_read(codes, solid, 1)
                 if postprocess.drop_read(solid):

@@ -163,6 +163,18 @@ def test_geometry_counters_match_the_per_window_oracle(run):
     assert c["geometry.frags"] == frags
 
 
+def test_stitch_counts_its_native_rounds(run):
+    """Every chunk's stitch is a native table: each stitched window is
+    applied by its native apply (no round of 8 lanes or fewer went to
+    the host aligner, which the CPU path leaves out), in group rounds
+    that each made one apply."""
+    c = run["snap"]["counts"]
+    assert c["stitch.windows_native"] == c["windows.total"] > 0
+    assert c.get("stitch.host_lanes", 0) == 0
+    assert 0 < c["stitch.rounds_native"] <= c["stitch.apply"]
+    assert c["stitch.apply"] == c["stitch.windows_native"]
+
+
 def test_geometry_runs_on_its_slot_thread_once_a_chunk(run):
     """Every chunk is one geometry task, called on the geometry slot's
     own thread: none on the caller's thread or on a shared pool's."""
